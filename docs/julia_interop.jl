@@ -1,16 +1,16 @@
-# Julia-side loader: read an HDF5 `Solutions` file written by the TPU-native
+# Julia-side loader: read an HDF5 `Solutions` file written by the JAX
 # framework (`energybalancemodel_jl_tpu.save`, see
 # energybalancemodel_jl_tpu/io.py) into a genuine EnergyBalanceModel.jl
 # `Solutions` object, so results cross the language boundary both ways:
 #
 #   Julia -> Python : `energybalancemodel_jl_tpu.io_jld2.read_jld2` reads the
 #                     reference's JLD2 saves (JLD2 files are HDF5).
-#   Python -> Julia : this script reads the TPU framework's plain-HDF5 saves.
+#   Python -> Julia : this script reads the framework's plain-HDF5 saves.
 #
 # Usage (Julia >= 1.10 with EnergyBalanceModel and HDF5 in the project):
 #
 #     include("julia_interop.jl")
-#     sols = load_tpu_solutions("run.h5")
+#     sols = load_framework_solutions("run.h5")
 #     plot_raw(sols)
 #
 # Layout contract (energybalancemodel_jl_tpu/io.py `_write_solutions`):
@@ -69,13 +69,13 @@ _columns(m::AbstractMatrix) = [Vector{Float64}(m[:, i]) for i in 1:size(m, 2)]
 _columns(v::AbstractVector) = Vector{Float64}[]  # empty (0, nx) dataset
 
 """
-    load_tpu_solutions(path) -> Solutions
+    load_framework_solutions(path) -> Solutions
 
-Read a `Solutions` HDF5 file written by the TPU-native framework.
+Read a `Solutions` HDF5 file written by the JAX framework.
 Raw storage the file does not contain (seasonal-only runs) is left `#undef`,
 exactly as a freshly allocated reference `Solutions` would be.
 """
-function load_tpu_solutions(path::AbstractString)::Solutions
+function load_framework_solutions(path::AbstractString)::Solutions
     h5open(path, "r") do f
         @assert read_attribute(f, "__ebm_type__") == "Solutions"
         st = _spacetime(f["spacetime"])

@@ -1,4 +1,4 @@
-"""energybalancemodel_jl_tpu — a TPU-native energy-balance-model framework.
+"""energybalancemodel_jl_tpu — an accelerator-native energy-balance-model framework.
 
 A brand-new JAX/XLA framework with the capabilities of
 ``waylonwh/EnergyBalanceModel.jl`` (mounted read-only at /root/reference):

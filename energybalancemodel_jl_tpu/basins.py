@@ -11,12 +11,11 @@ straight line between two states in different basins — the
 initial-condition-space companion of :func:`~energybalancemodel_jl_tpu.
 fold.fold` (which bisects in parameter space).
 
-The TPU leverage is the same lockstep-ensemble trick fold uses: members
+The accelerator leverage is the same lockstep-ensemble trick fold uses: members
 carry DIFFERENT second parameters (e.g. ``par["D"] = np.linspace(...)``
 or per-member forcing via ``par["F"]``), so one ensemble equilibration
 probes every member's own blend weight at once — K basin-boundary
-locations cost ``steps`` ensemble solves, each the fused whole-year
-Pallas kernel on TPU (``engine='auto'``).
+locations cost ``steps`` ensemble solves (``engine='auto'``).
 
 Caveat (critical slowing down): trajectories from initial conditions
 NEAR the basin boundary linger on the boundary's saddle (the "edge
@@ -212,8 +211,8 @@ def basins(
     or a sequence of unbatched states (stacked via :func:`stack_states`);
     :func:`blend_states` builds interpolation families. All K states
     equilibrate in ONE lockstep ensemble
-    (:func:`~energybalancemodel_jl_tpu.equilibrium.equilibrate` — the
-    fused whole-year kernel on TPU), then the converged members are
+    (:func:`~energybalancemodel_jl_tpu.equilibrium.equilibrate`), then
+    the converged members are
     clustered into attractors by seasonal ice area: sorted areas split
     wherever consecutive members are more than ``gap`` apart (default
     pi/4 — the classic warm/snowball separation is O(pi)). Distinct
@@ -838,7 +837,7 @@ def edge_state(
     /root/reference/src/plot.jl:173-225).
 
     The tracker alternates two moves, each a LOCKSTEP ensemble
-    equilibration (the fused whole-year kernel on TPU):
+    equilibration:
 
     1. **Multi-probe bisection** — ``probes`` blends between the current
        bracket pair integrate at once (``commit_years``/``commit_tol``);

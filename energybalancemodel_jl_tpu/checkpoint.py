@@ -27,10 +27,18 @@ import os
 import warnings
 from typing import List, Tuple
 
-import h5py
 import numpy as np
 
 from .utils.collection import Collection
+
+
+def _h5py():
+    """h5py, imported on first use: importing the package needs only JAX,
+    numpy and scipy."""
+    import h5py
+
+    return h5py
+
 
 __all__ = [
     "write_checkpoint", "read_checkpoint", "checkpoint_matches",
@@ -56,7 +64,7 @@ def write_checkpoint(
     """Atomically write a checkpoint (write to ``path.tmp`` then rename)."""
     tmp = path + ".tmp"
     winter, summer, avg = seasonal_acc
-    with h5py.File(tmp, "w") as f:
+    with _h5py().File(tmp, "w") as f:
         f.attrs["__ebm_type__"] = "Checkpoint"
         f.attrs["format"] = _FORMAT
         f.attrs["years_done"] = int(years_done)
@@ -77,7 +85,7 @@ def write_checkpoint(
 def read_checkpoint(path: str):
     """Read a checkpoint; returns ``(carry, years_done, seasonal_acc,
     config_key)``."""
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         if f.attrs.get("__ebm_type__") != "Checkpoint":
             raise ValueError(f"{path} is not an integrate checkpoint")
         years_done = int(f.attrs["years_done"])
@@ -105,7 +113,7 @@ def write_eq_checkpoint(path, carry, seasonal, years, resid, myears,
     year, Newton health). Everything a resume needs to re-enter the loop
     bit-exactly (Picard) or with a reseeded AA history (``anderson>0``)."""
     tmp = path + ".tmp"
-    with h5py.File(tmp, "w") as f:
+    with _h5py().File(tmp, "w") as f:
         f.attrs["__ebm_type__"] = "EqCheckpoint"
         f.attrs["format"] = _FORMAT
         f.attrs["years_done"] = int(years)
@@ -127,7 +135,7 @@ def write_eq_checkpoint(path, carry, seasonal, years, resid, myears,
 def read_eq_checkpoint(path: str):
     """Read an equilibrate checkpoint; returns ``(carry, seasonal_colls,
     years, resid, myears, newton, config_key)``."""
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         if f.attrs.get("__ebm_type__") != "EqCheckpoint":
             raise ValueError(f"{path} is not an equilibrate checkpoint")
         carry = Collection({k: np.asarray(v) for k, v in f["carry"].items()})
@@ -157,7 +165,7 @@ def write_cont_checkpoint(path, results, config_key, n_prev=None) -> str:
     from .io import _write_equilibrium
     if n_prev is None or not os.path.exists(path):
         tmp = path + ".tmp"
-        with h5py.File(tmp, "w") as f:
+        with _h5py().File(tmp, "w") as f:
             f.attrs["__ebm_type__"] = "ContCheckpoint"
             f.attrs["format"] = _FORMAT
             f.attrs["config_key"] = config_key
@@ -168,7 +176,7 @@ def write_cont_checkpoint(path, results, config_key, n_prev=None) -> str:
             f.attrs["n_done"] = len(results)
         os.replace(tmp, path)
         return path
-    with h5py.File(path, "a") as f:
+    with _h5py().File(path, "a") as f:
         if (f.attrs.get("__ebm_type__") != "ContCheckpoint"
                 or str(f.attrs.get("config_key")) != config_key):
             raise ValueError(
@@ -190,7 +198,7 @@ def read_cont_checkpoint(path: str):
     Only the ``n_done`` gated prefix of level groups is trusted (orphans
     past it are a crash artifact of an interrupted append)."""
     from .io import _read_equilibrium
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         if f.attrs.get("__ebm_type__") != "ContCheckpoint":
             raise ValueError(f"{path} is not a continuation checkpoint")
         g = f["levels"]
@@ -213,7 +221,7 @@ def write_fold_checkpoint(path, config_key, anchor, lo, hi, history,
     from .io import _write_equilibrium
 
     tmp = path + ".tmp"
-    with h5py.File(tmp, "w") as f:
+    with _h5py().File(tmp, "w") as f:
         f.attrs["__ebm_type__"] = "FoldCheckpoint"
         f.attrs["format"] = _FORMAT
         f.attrs["config_key"] = config_key
@@ -239,7 +247,7 @@ def read_fold_checkpoint(path: str):
     hold (the writer is atomic, so no orphan handling is needed)."""
     from .io import _read_equilibrium
 
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         if f.attrs.get("__ebm_type__") != "FoldCheckpoint":
             raise ValueError(f"{path} is not a fold checkpoint")
         n = int(f.attrs["n_done"])
@@ -269,7 +277,7 @@ def write_edge_checkpoint(path, config_key, result_a, result_b, area_a,
     from .io import _write_equilibrium
 
     tmp = path + ".tmp"
-    with h5py.File(tmp, "w") as f:
+    with _h5py().File(tmp, "w") as f:
         f.attrs["__ebm_type__"] = "EdgeCheckpoint"
         f.attrs["format"] = _FORMAT
         f.attrs["config_key"] = config_key
@@ -291,7 +299,7 @@ def read_edge_checkpoint(path: str):
     """Read an edge checkpoint; returns ``(state_dict, config_key)``."""
     from .io import _read_equilibrium
 
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         if f.attrs.get("__ebm_type__") != "EdgeCheckpoint":
             raise ValueError(f"{path} is not an edge checkpoint")
         if "probe_finite" not in f:  # pre-r3 file: resume restarts fresh
@@ -451,7 +459,7 @@ def year_writer(checkpoint, key, get_state, split=None):
     the CURRENT ``(carry, (winter_acc, summer_acc, avg_acc))`` (the drivers
     rebind ``carry`` every year, so it must be read at write time); the
     fetch is one bulk ``jax.device_get`` — per-leaf transfers pay a device
-    round-trip per array on remote TPUs. ``split`` post-processes each
+    round-trip per array. ``split`` post-processes each
     fetched accumulator list (the chunked dispatch path stores stacked
     multi-year entries that must be split back into per-year rows)."""
     import jax
@@ -472,7 +480,7 @@ def checkpoint_matches(path: str, config_key: str,
                        kind: str = "Checkpoint") -> bool:
     if not os.path.exists(path):
         return False
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         return (
             f.attrs.get("__ebm_type__") == kind
             and str(f.attrs.get("config_key")) == config_key

@@ -9,12 +9,11 @@ is gone at ``lo``; each probe warm-starts from the anchor state and asks
 "did the solve stay on the branch, or fall off?". ``steps`` bisection
 steps shrink the bracket by ``2**-steps``.
 
-The TPU leverage is the ensemble axis: members carry DIFFERENT second
+The accelerator leverage is the ensemble axis: members carry DIFFERENT second
 parameters (e.g. ``par["D"] = np.linspace(...)``) and different brackets,
 so one lockstep equilibration probes every member's own midpoint at once —
 K fold locations cost ``steps`` ensemble solves instead of K independent
-scans, and on TPU each solve is the fused whole-year kernel
-(``engine='auto'``). ``examples/fold_tracking.py`` drives this API.
+scans (``engine='auto'``). ``examples/fold_tracking.py`` drives this API.
 
 Caveat (critical slowing down): the relaxation time diverges at a fold,
 so ``max_years`` bounds how sharply the fold can be resolved — a probe
@@ -181,8 +180,8 @@ def fold(
     when resuming.
 
     All remaining keywords (``engine``/``mesh``/``dtype``/``anderson``/
-    ...) pass through to :func:`equilibrate`; on TPU each probe runs the
-    fused whole-year kernel. Returns a :class:`FoldResult`.
+    ...) pass through to :func:`equilibrate`. Returns a
+    :class:`FoldResult`.
     """
     if not isinstance(forcing, Forcing):
         forcing = Forcing(float(forcing))

@@ -30,6 +30,7 @@ import numpy as np
 from jax import lax
 
 from .forcing import Forcing
+from .engine import auto_whole_year, check_whole_year
 from .models.base import StepConfig, default_step_config, get_model
 from .solutions import Seasonal, Solutions
 from .spacetime import SpaceTime
@@ -104,9 +105,9 @@ def make_year_fn(
     REVERSE-MODE consumers (lyapunov tangent propagation, stability's
     vjp power iteration) store only the per-step carry chain instead of
     every step's internal residuals — without it, vjp through a year
-    needs ~R x nt x K x nx floats of residuals and an ensemble vjp at
-    K=1024 demands 156 GB of HBM (measured round 5: compile-time OOM);
-    with it the footprint is the carry chain, ~9 GB at K=1024/f32.
+    needs ~R x nt x K x nx floats of residuals (R per-step intermediates,
+    more than device memory holds for wide ensembles); with it the
+    footprint is the carry chain, nt x K x nx x (carry fields) floats.
     Forward-only consumers must leave it False (identical numerics, but
     the annotation can perturb fusion); the recomputation replays the
     identical op sequence, so gradients are unchanged.
@@ -190,7 +191,7 @@ def make_year_fn(
 
     # seasonal-only mode: the scan emits nothing — annual sums and the
     # winter/summer snapshots accumulate in the carry, so memory traffic is
-    # O(nx) per step instead of O(nt*nx) per year (the HBM-bandwidth lever
+    # O(nx) per step instead of O(nt*nx) per year (the memory-bandwidth lever
     # that lets thousands of ensemble members fit and fly).
     def year_fn(carry, par, fyear, year_idx=None):
         stat = spec.statics(st, par, dtype)
@@ -262,8 +263,7 @@ def _jitted_year_fn(model_name, st, cfg, dtype_name, collect_raw, debug,
 def _jitted_years_fn(model_name, st, cfg, dtype_name, debug, n_years):
     """``n_years`` seasonal-only years in ONE dispatch: an outer ``lax.scan``
     over the year function. Cuts host->device round-trips from one per year
-    to one per chunk — the dominant cost of long single runs on remote/
-    tunneled TPUs (dispatch latency >> device time at ensemble width 1)."""
+    to one per chunk."""
     year_fn = make_year_fn(model_name, st, cfg, dtype_name, False, debug)
 
     def years_fn(carry, par, f_years):
@@ -279,61 +279,52 @@ def _jitted_years_fn(model_name, st, cfg, dtype_name, debug, n_years):
     return jax.jit(years_fn)
 
 
-@functools.lru_cache(maxsize=64)
-def _jitted_fused_years(model_name, st, cfg, dtype_name, interpret, n_years):
-    """``n_years`` fused whole-year kernel launches in ONE dispatch: a
-    ``lax.scan`` over the Pallas year kernel. Unlike the XLA chunked path
-    (:func:`_jitted_years_fn`), the kernel is a black box the scan merely
-    feeds the carry through — per-year results are BITWISE identical to the
-    one-dispatch-per-year fused path, so checkpoints may mix chunkings."""
-    from .ops.pallas_year import pallas_classic_year, pallas_miz_year
+def _whole_year(model_name):
+    from .ops.year import classic_year, miz_year
 
-    kern = pallas_miz_year if model_name == "MIZ" else pallas_classic_year
+    return miz_year if model_name == "MIZ" else classic_year
+
+
+def _lift(carry):
+    return Collection({k: v[None] for k, v in carry.items()})
+
+
+def _squeeze(coll, axis):
+    idx = (slice(None),) * axis + (0,)
+    return Collection({k: v[idx] for k, v in coll.items()})
+
+
+@functools.lru_cache(maxsize=64)
+def _jitted_fused_years(model_name, st, cfg, dtype_name, n_years):
+    """``n_years`` whole-year-engine years in ONE dispatch: a ``lax.scan``
+    over :mod:`.ops.year` on the run lifted to a 1-member ensemble."""
+    year = _whole_year(model_name)
 
     def fn(carry, par, f_years):
-        c1 = Collection({k: v[None] for k, v in carry.items()})
-
         def body(c, frow):
-            c, seas, conv, _ = kern(c, par, frow, st, cfg, interpret=interpret)
-            if conv is None:  # classic kernel has no Newton flag
+            c, seas, conv, _ = year(c, par, frow, st, cfg)
+            if conv is None:  # classic has no Newton flag
                 conv = jnp.ones(())
             return c, (seas, conv)
 
-        c1, (seasons, convs) = lax.scan(body, c1, f_years)
-        carry = Collection({k: v[0] for k, v in c1.items()})
-        # kernel outputs are (n_years, 1, nx): drop the 1-member axis
-        squeeze = lambda coll: Collection({k: v[:, 0] for k, v in coll.items()})
-        seasonal = Seasonal(
-            winter=squeeze(seasons.winter),
-            summer=squeeze(seasons.summer),
-            avg=squeeze(seasons.avg),
-        )
-        return carry, seasonal, convs
+        c1, (seasons, convs) = lax.scan(body, _lift(carry), f_years)
+        # outputs are (n_years, 1, nx): drop the 1-member axis
+        seasonal = Seasonal(*(_squeeze(c, 1) for c in seasons))
+        return _squeeze(c1, 0), seasonal, convs
 
     return jax.jit(fn)
 
 
 @functools.lru_cache(maxsize=64)
-def _jitted_fused_single(model_name, st, cfg, dtype_name, interpret):
-    """Single-run adapter for the whole-year Pallas kernels: lift the (nx,)
-    carry to a 1-member batch, run the kernel, squeeze back — all inside ONE
-    jit (eager reshape/slice ops would each pay a device round-trip, which
-    dwarfs the 12 ms kernel on remote TPUs)."""
-    from .ops.pallas_year import pallas_classic_year, pallas_miz_year
-
-    kern = pallas_miz_year if model_name == "MIZ" else pallas_classic_year
+def _jitted_fused_single(model_name, st, cfg, dtype_name):
+    """Single-run adapter for the whole-year engine: lift the (nx,) carry to
+    a 1-member ensemble, run the year, squeeze back — all inside ONE jit."""
+    year = _whole_year(model_name)
 
     def fn(carry, par, frow):
-        c1 = Collection({k: v[None] for k, v in carry.items()})
-        c1, seas, conv, _ = kern(c1, par, frow, st, cfg, interpret=interpret)
-        carry = Collection({k: v[0] for k, v in c1.items()})
-        squeeze = lambda coll: Collection({k: v[0] for k, v in coll.items()})
-        seasonal = Seasonal(
-            winter=squeeze(seas.winter),
-            summer=squeeze(seas.summer),
-            avg=squeeze(seas.avg),
-        )
-        return carry, seasonal, conv
+        c1, seas, conv, _ = year(_lift(carry), par, frow, st, cfg)
+        seasonal = Seasonal(*(_squeeze(c, 0) for c in seas))
+        return _squeeze(c1, 0), seasonal, conv
 
     return jax.jit(fn)
 
@@ -369,8 +360,8 @@ def integrate(
     ``lastonly=True`` stores per-step raw data only for the final year.
     ``verbose=True`` warns when the MIZ surface-temperature solve fails to
     converge in a year. ``dtype`` defaults to float64 when x64 is enabled
-    (parity config) else float32 (TPU throughput config); ``solver`` selects
-    the tridiagonal kernel (``'pcr'`` log-depth TPU path, ``'thomas'``
+    (parity config) else float32 (throughput config); ``solver`` selects
+    the tridiagonal kernel (``'pcr'`` log-depth parallel, ``'thomas'``
     sequential).
 
     ``checkpoint`` names an HDF5 file written every ``checkpoint_every``
@@ -380,14 +371,12 @@ def integrate(
     ``jax.profiler`` trace of the run for TensorBoard.
 
     ``engine='fused'`` runs seasonal-only years through the whole-year
-    Pallas kernel (:mod:`.ops.pallas_year`) — the TPU fast path for long
-    single runs; raw-collected years fall back to the scan. Requires
-    ``debug=None`` and scalar parameters outside the model's sweep surface;
-    ``engine='scan'`` is the jitted ``lax.scan`` path and the float64
-    parity configuration. ``'auto'`` (default) picks ``'fused'`` on a TPU
-    backend for float32 runs without a ``debug`` hook (and a PCR-family
-    solver), ``'scan'`` everywhere else — in particular, the float64
-    parity config always gets the scan graph.
+    engine (:mod:`.ops.year`); raw-collected years fall back to the scan.
+    Requires ``debug=None``; ``engine='scan'`` is the jitted ``lax.scan``
+    path. ``'auto'`` (default) picks between them with the policy the
+    drivers share (:func:`.engine.auto_whole_year`): ``'fused'``, or
+    ``'scan'`` when the run needs a debug hook, sub-year progress ticks or
+    the Thomas solver.
 
     ``progress_steps=N`` ticks the progress bar every ``N`` in-year steps
     from INSIDE the jitted scan (``jax.debug.callback``) — sub-year feedback
@@ -404,18 +393,14 @@ def integrate(
     ``years_per_dispatch > 1`` warns and ignores ``progress_steps``.
 
     ``years_per_dispatch > 1`` batches that many seasonal-only years into a
-    single device dispatch (an outer ``lax.scan`` over years) — the lever
-    for long single runs where per-dispatch latency dominates device time
-    (remote/tunneled TPUs). Progress and checkpoints advance per chunk.
+    single device dispatch (an outer ``lax.scan`` over years), which saves
+    a host round trip per year; progress and checkpoints advance per chunk.
     With ``engine='scan'`` results match the per-year path to compiled-graph
     rounding only (the chunking is part of the checkpoint key); with
-    ``engine='fused'`` the scan feeds the carry through the unchanged Pallas
-    kernel, so results are bitwise chunking-invariant and checkpoints may
-    mix chunkings. Default (``None``): 8 for the fused engine (bitwise-safe
-    pure win), 1 for the scan engine (keeps the parity graph unchanged).
-    Keep each chunk's device time under ~30 s: a single dispatch running
-    multiple minutes kills the remote-TPU worker process (execution
-    watchdog — measured, BENCH_NOTES.md).
+    ``engine='fused'`` the scan feeds the carry through the same year
+    program, and checkpoints may mix chunkings. Default (``None``): 8 for
+    the fused engine, 1 for the scan engine (keeps the parity graph
+    unchanged).
     """
     spec = get_model(model)
     if dtype is None:
@@ -428,50 +413,28 @@ def integrate(
         raw_mode = "last" if lastonly else "all"
     if raw_mode not in ("last", "all", "none"):
         raise ValueError(f"raw_mode must be 'last'|'all'|'none', got {raw_mode!r}")
-    if engine == "auto":
-        # fused is the TPU fast path; scan is the parity graph (always used
-        # for float64 — Mosaic has no practical f64 path) and the only
-        # engine with the debug hook and non-PCR solvers. The VMEM fit
-        # predicate keeps auto from selecting a kernel that cannot launch
-        # at high resolution (it falls back to the scan engine instead of
-        # raising the launch guard's ValueError).
-        if (
-            jax.default_backend() == "tpu"
-            and spec.name in ("MIZ", "Classic")
-            and debug is None
-            and solver in ("pcr", "pcr_fused")
-            and dtype != jnp.float64
-            and progress_steps is None  # sub-year ticks need the scan graph
-        ):
-            from .ops.pallas_year import fused_unfit
-
-            engine = "scan" if fused_unfit(spec.name, st, dtype) else "fused"
-        else:
-            engine = "scan"
-    if years_per_dispatch is None:
-        years_per_dispatch = 8 if engine == "fused" else 1
-
     cfg = default_step_config(
         dtype.name, solver=solver, newton_max_iter=newton_max_iter,
         verbose=verbose,
     )
+    if engine == "auto":
+        engine = "fused" if auto_whole_year(
+            spec.name,
+            per_year_only=(debug is not None or solver != "pcr"
+                           or progress_steps is not None),
+        ) else "scan"
+    if years_per_dispatch is None:
+        years_per_dispatch = 8 if engine == "fused" else 1
+
     fused_kernel = None
     if engine == "fused":
-        if spec.name not in ("MIZ", "Classic"):
-            raise ValueError(
-                f"engine='fused' has no whole-year kernel for model "
-                f"{spec.name!r}; use engine='scan'"
-            )
+        check_whole_year(spec.name, "engine='scan'")
         if debug is not None:
             raise ValueError(
                 "engine='fused' does not support the debug hook; use "
                 "engine='scan'"
             )
-        from .ops.pallas_year import default_interpret
-
-        fused_kernel = _jitted_fused_single(
-            spec.name, st, cfg, dtype.name, default_interpret()
-        )
+        fused_kernel = _jitted_fused_single(spec.name, st, cfg, dtype.name)
     elif engine != "scan":
         raise ValueError(
             f"unknown engine {engine!r}; expected 'auto', 'scan' or 'fused'"
@@ -480,8 +443,8 @@ def integrate(
     tick_every = 0
     if progress_steps is not None and int(progress_steps) > 0:
         if engine != "scan" or years_per_dispatch > 1:
-            # ticks ride the per-year scan graph only (fused kernels and
-            # multi-year chunks have no in-graph callback); warn instead of
+            # ticks ride the per-year scan graph only (the whole-year engine
+            # and multi-year chunks have no in-graph callback); warn instead of
             # silently losing the requested feedback
             warnings.warn(
                 "progress_steps is ignored: sub-year progress ticks need "
@@ -515,8 +478,8 @@ def integrate(
         if years_per_dispatch > 1 and engine != "fused":
             # chunked XLA dispatch compiles a different graph; graph-level
             # rounding amplifies, so a resume must use the same chunking.
-            # (The fused kernel is a black box the chunking scan feeds the
-            # carry through — bitwise chunking-invariant, key unchanged.)
+            # (The whole-year engine's chunks scan the same year program,
+            # so its key leaves the chunking out.)
             extras.append(f"ypd{years_per_dispatch}")
         ckpt_key = ckpt_mod.config_key(
             "", spec.name, st, forcing, par, dtype.name, solver,
@@ -568,11 +531,8 @@ def integrate(
                 chunk = min(chunk, (y // every + 1) * every - y)
             if chunk > 1:
                 if fused_kernel is not None:
-                    from .ops.pallas_year import default_interpret
-
                     years_fn = _jitted_fused_years(
-                        spec.name, st, cfg, dtype.name, default_interpret(),
-                        chunk,
+                        spec.name, st, cfg, dtype.name, chunk
                     )
                 else:
                     years_fn = _jitted_years_fn(
@@ -602,9 +562,8 @@ def integrate(
                     prog.update(y * st.nt, feedargs=(float(st.T[y * st.nt - 1]),))
                 continue
         if fused_kernel is not None and not collect:
-            # single run as a 1-member ensemble block (padded to the sublane
-            # minimum inside the kernel); raw-collect years take the scan
-            # path below. One dispatch per year.
+            # single run as a 1-member ensemble; raw-collect years take the
+            # scan path below. One dispatch per year.
             carry, seasonal, converged = fused_kernel(carry, par_j, f_tab[y])
             ys = None
         else:
@@ -645,7 +604,7 @@ def integrate(
     varnames = list(spec.solution_vars) + (["debug"] if debug is not None else [])
     # ONE bulk device->host fetch for every stored array: per-leaf np.asarray
     # would pay a full round-trip per (nx,) vector (3 stores x 10 vars x dur
-    # years), which dominates wall time on remote/tunneled TPUs
+    # years)
     raw_chunks, winter_acc, summer_acc, avg_acc = jax.device_get(
         (raw_chunks, winter_acc, summer_acc, avg_acc)
     )

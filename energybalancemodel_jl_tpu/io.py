@@ -18,7 +18,6 @@ import datetime
 import os
 import warnings
 
-import h5py
 import numpy as np
 
 from .forcing import Forcing
@@ -26,6 +25,15 @@ from .solutions import Seasonal, Solutions
 from .spacetime import SpaceTime
 from .utils.collection import Collection
 from .utils.safehouse import house, reprhex, safehouse, unique_id
+
+
+def _h5py():
+    """h5py, imported on first use: importing the package needs only JAX,
+    numpy and scipy."""
+    import h5py
+
+    return h5py
+
 
 __all__ = ["save", "load", "load_into", "unsafesave", "unsafeload"]
 
@@ -39,7 +47,7 @@ def _write_collection(grp: h5py.Group, coll) -> None:
         grp.create_dataset(str(k), data=arr)
 
 
-def _read_collection(grp: h5py.Group) -> Collection:
+def _read_collection(grp: _h5py().Group) -> Collection:
     out = Collection()
     for k in grp.keys():
         v = np.asarray(grp[k])
@@ -91,7 +99,7 @@ def _write_ensemble(f: h5py.Group, ens) -> None:
         _write_collection(f.create_group("raw"), ens.raw)
 
 
-def _read_ensemble(f: h5py.Group):
+def _read_ensemble(f: _h5py().Group):
     from .parallel.ensemble import EnsembleSolutions
 
     st = _read_spacetime(f)
@@ -111,7 +119,7 @@ def _read_ensemble(f: h5py.Group):
     )
 
 
-def _read_spacetime(f: h5py.Group) -> SpaceTime:
+def _read_spacetime(f: _h5py().Group) -> SpaceTime:
     a = f["spacetime"].attrs
     return SpaceTime(
         nx=int(a["nx"]), nt=int(a["nt"]), dur=int(a["dur"]), grid=str(a["grid"]),
@@ -120,7 +128,7 @@ def _read_spacetime(f: h5py.Group) -> SpaceTime:
     )
 
 
-def _read_forcing(f: h5py.Group) -> Forcing:
+def _read_forcing(f: _h5py().Group) -> Forcing:
     a = f["forcing"].attrs
     if bool(a["constant"]):
         return Forcing(float(a["base"]))
@@ -149,7 +157,7 @@ def _write_equilibrium(f: h5py.Group, eq) -> None:
         _write_collection(g.create_group(season), getattr(eq.seasonal, season))
 
 
-def _read_equilibrium(f: h5py.Group):
+def _read_equilibrium(f: _h5py().Group):
     from .equilibrium import EquilibriumResult
 
     resid = np.asarray(f["resid"])
@@ -190,7 +198,7 @@ def _write_continuation(f: h5py.Group, cont) -> None:
         _write_equilibrium(levels.create_group(f"{i:08d}"), r)
 
 
-def _read_continuation(f: h5py.Group):
+def _read_continuation(f: _h5py().Group):
     from .equilibrium import ContinuationResult
 
     levels = f["levels"]
@@ -222,7 +230,7 @@ def _write_fold(f: h5py.Group, res) -> None:
         _write_collection(f.create_group("par"), res.par)
 
 
-def _read_fold(f: h5py.Group):
+def _read_fold(f: _h5py().Group):
     from .fold import FoldResult
 
     return FoldResult(
@@ -251,7 +259,7 @@ def _write_basins(f: h5py.Group, res) -> None:
         _write_collection(f.create_group("par"), res.par)
 
 
-def _read_basins(f: h5py.Group):
+def _read_basins(f: _h5py().Group):
     from .basins import BasinResult
 
     return BasinResult(
@@ -282,7 +290,7 @@ def _write_edge(f: h5py.Group, res) -> None:
         _write_collection(f.create_group("par"), res.par)
 
 
-def _read_edge(f: h5py.Group):
+def _read_edge(f: _h5py().Group):
     from .basins import EdgeResult
 
     return EdgeResult(
@@ -319,7 +327,7 @@ def _write_stability(f: h5py.Group, res) -> None:
     _write_collection(f.create_group("mode"), res.mode)
 
 
-def _read_stability(f: h5py.Group):
+def _read_stability(f: _h5py().Group):
     from .equilibrium import StabilityResult
 
     growth = np.asarray(f["growth"])
@@ -354,7 +362,7 @@ def _write_edge_state(f: h5py.Group, res) -> None:
         _write_collection(f.create_group("par"), res.par)
 
 
-def _read_edge_state(f: h5py.Group):
+def _read_edge_state(f: _h5py().Group):
     from .basins import EdgeStateResult
 
     return EdgeStateResult(
@@ -382,7 +390,7 @@ def _write_sensitivity(f: h5py.Group, res) -> None:
     _write_collection(f.create_group("par"), res.par)
 
 
-def _read_sensitivity(f: h5py.Group):
+def _read_sensitivity(f: _h5py().Group):
     from .sensitivity import SensitivityResult
 
     value = np.asarray(f["value"])
@@ -409,7 +417,7 @@ def _write_calibration(f: h5py.Group, res) -> None:
         f.create_dataset("start_losses", data=np.asarray(res.start_losses))
 
 
-def _read_calibration(f: h5py.Group):
+def _read_calibration(f: _h5py().Group):
     from .calibrate import CalibrationResult
 
     multi = "best" in f.attrs
@@ -434,7 +442,7 @@ def _write_lyapunov(f: h5py.Group, res) -> None:
     _write_collection(f.create_group("modes"), res.modes)
 
 
-def _read_lyapunov(f: h5py.Group):
+def _read_lyapunov(f: _h5py().Group):
     from .lyapunov import LyapunovResult
 
     return LyapunovResult(
@@ -474,7 +482,7 @@ def _write_transition(f: h5py.Group, res) -> None:
         f.create_dataset("crossing_step", data=np.asarray(res.crossing_step))
 
 
-def _read_transition(f: h5py.Group):
+def _read_transition(f: _h5py().Group):
     from .stochastic import TransitionResult
 
     return TransitionResult(
@@ -511,7 +519,7 @@ def _read_transition(f: h5py.Group):
     )
 
 
-def _read_solutions(f: h5py.Group) -> Solutions:
+def _read_solutions(f: _h5py().Group) -> Solutions:
     st = _read_spacetime(f)
     forcing = _read_forcing(f)
     seasonal = Seasonal(
@@ -557,7 +565,7 @@ def unsafesave(obj, path: str, spwarn: bool = False, **kwargs) -> str:
     from .sensitivity import SensitivityResult
     from .stochastic import TransitionResult
 
-    with h5py.File(path, "w") as f:
+    with _h5py().File(path, "w") as f:
         if isinstance(obj, Solutions):
             _write_solutions(f, obj)
         elif isinstance(obj, EnsembleSolutions):
@@ -619,7 +627,7 @@ def unsafeload(path: str, spwarn: bool = False):
     /root/reference/src/io.jl:54-59)."""
     if not spwarn:
         warnings.warn("`unsafeload` could overwrite existing variables. Use `load` instead.")
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         tag = f.attrs.get("__ebm_type__", "Collection")
         if tag == "Solutions":
             return _read_solutions(f)

@@ -23,12 +23,22 @@ Julia objects.
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Any
 
-import h5py
 import numpy as np
 
 from .utils.collection import Collection
+
+
+def _h5py():
+    """h5py, imported on first use: importing the package needs only JAX,
+    numpy and scipy."""
+    import h5py
+
+    return h5py
+
 
 __all__ = ["read_jld2", "extract_dict", "write_jld2", "load_jld2_solutions"]
 
@@ -38,9 +48,9 @@ _MAX_DEPTH = 32
 def _decode(obj, f: h5py.File, depth: int = 0) -> Any:
     if depth > _MAX_DEPTH:
         return obj
-    if isinstance(obj, h5py.Group):
+    if isinstance(obj, _h5py().Group):
         return {k: _decode(obj[k], f, depth + 1) for k in obj.keys()}
-    if isinstance(obj, h5py.Dataset):
+    if isinstance(obj, _h5py().Dataset):
         return _decode_dataset(obj, f, depth)
     return obj
 
@@ -74,7 +84,7 @@ def _julia_type_name(ds, f: h5py.File):
             return None
         for key in tg:
             node = tg[key]
-            if isinstance(node, h5py.Datatype) and node.id == tid:
+            if isinstance(node, _h5py().Datatype) and node.id == tid:
                 return attr_name(node)
     except Exception:
         return None
@@ -123,7 +133,7 @@ def _decode_value(data, dt, f: h5py.File, depth: int) -> Any:
     if depth > _MAX_DEPTH:
         return data
     # object references → dereference recursively
-    if h5py.check_ref_dtype(dt) is not None:
+    if _h5py().check_ref_dtype(dt) is not None:
         def deref(r):
             if not r:
                 return None  # null reference (#undef slot)
@@ -150,7 +160,7 @@ def _decode_value(data, dt, f: h5py.File, depth: int) -> Any:
             return decode_record(arr[()])
         return [decode_record(rec) for rec in arr]
     # variable-length strings
-    if h5py.check_string_dtype(dt) is not None:
+    if _h5py().check_string_dtype(dt) is not None:
         if isinstance(data, bytes):
             return data.decode("utf-8", "replace")
         if np.isscalar(data):
@@ -166,7 +176,7 @@ def read_jld2(path: str) -> Any:
     ``JLD2.save_object`` files decode from their ``single_stored_object``
     root; ``jldsave(path; name=obj)`` files decode to a dict of names.
     """
-    with h5py.File(path, "r") as f:
+    with _h5py().File(path, "r") as f:
         keys = [k for k in f.keys() if not k.startswith("_")]
         if keys == ["single_stored_object"]:
             return _decode(f["single_stored_object"], f)
@@ -262,46 +272,54 @@ def extract_dict(decoded: Any) -> Collection:
 # CI-able validation harness for an environment that has Julia, and the
 # in-repo round-trip (write_jld2 -> load_jld2_solutions) pins the layout.
 
-REF_DTYPE = h5py.ref_dtype
-STR_DTYPE = h5py.string_dtype()
-VLEN_REF = h5py.vlen_dtype(h5py.ref_dtype)
-#: on-disk representation of ``Core.DataType``: {name, parameters}
-DATATYPE_DTYPE = np.dtype([("name", STR_DTYPE), ("parameters", VLEN_REF)])
+@functools.lru_cache(maxsize=None)
+def _dtypes():
+    """The on-disk compound types, built on first use (they need h5py's
+    reference and string dtypes)."""
+    h5py = _h5py()
+    ref = h5py.ref_dtype
+    string = h5py.string_dtype()
+    coll = np.dtype([("dict", ref)])
+    twice = np.dtype([("hi", "<f8"), ("lo", "<f8")])
+    steprange = np.dtype(
+        [("ref", twice), ("step", twice), ("len", "<i8"), ("offset", "<i8")]
+    )
+    seasontick = np.dtype([("t", "<f8"), ("inx", "<i8")])
+    spacetime = np.dtype(
+        [
+            ("nx", "<i8"), ("u", ref), ("x", ref), ("dur", "<i8"),
+            ("nt", "<i8"), ("dt", "<f8"), ("t", ref),
+            ("T", steprange), ("winter", seasontick), ("summer", seasontick),
+        ]
+    )
+    nt2i = np.dtype([("1", "<i8"), ("2", "<i8")])
+    nt2f = np.dtype([("1", "<f8"), ("2", "<f8")])
+    nt5i = np.dtype([(str(i), "<i8") for i in range(1, 6)])
+    forcing = np.dtype(
+        [
+            ("base", "<f8"), ("peak", "<f8"), ("cool", "<f8"),
+            ("holdyrs", nt2i), ("rates", nt2f), ("domain", nt5i),
+        ]
+    )
+    seasonal = np.dtype([("winter", coll), ("summer", coll), ("avg", coll)])
+    solutions = np.dtype(
+        [
+            ("spacetime", spacetime), ("ts", ref),
+            ("forcing", forcing), ("parameters", coll),
+            ("initconds", coll), ("lastonly", "u1"), ("debug", ref),
+            ("raw", coll), ("seasonal", seasonal),
+        ]
+    )
+    return types.SimpleNamespace(
+        REF=ref, STR=string,
+        # on-disk representation of ``Core.DataType``: {name, parameters}
+        DATATYPE=np.dtype([("name", string),
+                           ("parameters", h5py.vlen_dtype(ref))]),
+        COLL=coll, STEPRANGE=steprange, SEASONTICK=seasontick,
+        SPACETIME=spacetime, FORCING=forcing, SEASONAL=seasonal,
+        SOLUTIONS=solutions,
+    )
 
-_COLL_DTYPE = np.dtype([("dict", REF_DTYPE)])
-_TWICE_DTYPE = np.dtype([("hi", "<f8"), ("lo", "<f8")])
-_STEPRANGE_DTYPE = np.dtype(
-    [("ref", _TWICE_DTYPE), ("step", _TWICE_DTYPE), ("len", "<i8"), ("offset", "<i8")]
-)
-_SEASONTICK_DTYPE = np.dtype([("t", "<f8"), ("inx", "<i8")])
-_SPACETIME_DTYPE = np.dtype(
-    [
-        ("nx", "<i8"), ("u", REF_DTYPE), ("x", REF_DTYPE), ("dur", "<i8"),
-        ("nt", "<i8"), ("dt", "<f8"), ("t", REF_DTYPE),
-        ("T", _STEPRANGE_DTYPE), ("winter", _SEASONTICK_DTYPE),
-        ("summer", _SEASONTICK_DTYPE),
-    ]
-)
-_NT2I_DTYPE = np.dtype([("1", "<i8"), ("2", "<i8")])
-_NT2F_DTYPE = np.dtype([("1", "<f8"), ("2", "<f8")])
-_NT5I_DTYPE = np.dtype([(str(i), "<i8") for i in range(1, 6)])
-_FORCING_DTYPE = np.dtype(
-    [
-        ("base", "<f8"), ("peak", "<f8"), ("cool", "<f8"),
-        ("holdyrs", _NT2I_DTYPE), ("rates", _NT2F_DTYPE), ("domain", _NT5I_DTYPE),
-    ]
-)
-_SEASONAL_DTYPE = np.dtype(
-    [("winter", _COLL_DTYPE), ("summer", _COLL_DTYPE), ("avg", _COLL_DTYPE)]
-)
-_SOLUTIONS_DTYPE = np.dtype(
-    [
-        ("spacetime", _SPACETIME_DTYPE), ("ts", REF_DTYPE),
-        ("forcing", _FORCING_DTYPE), ("parameters", _COLL_DTYPE),
-        ("initconds", _COLL_DTYPE), ("lastonly", "u1"), ("debug", REF_DTYPE),
-        ("raw", _COLL_DTYPE), ("seasonal", _SEASONAL_DTYPE),
-    ]
-)
 
 _MODULE_PREFIX = "EnergyBalanceModel.Infrastructure"
 
@@ -329,20 +347,20 @@ class JLD2Writer:
         return f"{self._n_heap:08d}"
 
     def _dt_value(self, name: str, params=()):
-        v = np.zeros((1,), dtype=DATATYPE_DTYPE)
+        v = np.zeros((1,), dtype=_dtypes().DATATYPE)
         v["name"][0] = name
-        v["parameters"][0] = np.array(list(params), dtype=REF_DTYPE)
+        v["parameters"][0] = np.array(list(params), dtype=_dtypes().REF)
         return v[0]
 
     def datatype_type(self) -> h5py.Datatype:
         """Commit (once) the self-referential ``Core.DataType`` type."""
         if "DataType" not in self._committed:
             nm = self._next_type()
-            self.types[nm] = DATATYPE_DTYPE
+            self.types[nm] = _dtypes().DATATYPE
             named = self.types[nm]
             self._committed["DataType"] = named
             named.attrs.create(
-                "julia_type", self._dt_value("Core.DataType"), dtype=DATATYPE_DTYPE
+                "julia_type", self._dt_value("Core.DataType"), dtype=_dtypes().DATATYPE
             )
         return self._committed["DataType"]
 
@@ -390,13 +408,13 @@ class JLD2Writer:
             for p in params
         ]
         named.attrs.create(
-            "julia_type", self._dt_value(name, prefs), dtype=DATATYPE_DTYPE
+            "julia_type", self._dt_value(name, prefs), dtype=_dtypes().DATATYPE
         )
         if written_spec is not None:
             wname, wparams = written_spec[0], written_spec[1:]
             wrefs = [self.type_ref(p) for p in wparams]
             named.attrs.create(
-                "written_type", self._dt_value(wname, wrefs), dtype=DATATYPE_DTYPE
+                "written_type", self._dt_value(wname, wrefs), dtype=_dtypes().DATATYPE
             )
         return named
 
@@ -410,7 +428,7 @@ class JLD2Writer:
             self._heap_name(), data=np.uint8(1 if b else 0)
         )
         ds.attrs.create(
-            "julia_type", self._dt_value("Core.Bool"), dtype=DATATYPE_DTYPE
+            "julia_type", self._dt_value("Core.Bool"), dtype=_dtypes().DATATYPE
         )
         return ds.ref
 
@@ -426,14 +444,14 @@ class JLD2Writer:
         """Heap a ``Vector{Vector{Float64}}``: a dataset of object
         references with a ``julia_type`` attribute (reference arrays alone
         are ``Vector{Any}`` to JLD2)."""
-        refs = np.array([self.vec_ref(a) for a in arrays], dtype=REF_DTYPE)
+        refs = np.array([self.vec_ref(a) for a in arrays], dtype=_dtypes().REF)
         ds = self.heap.create_dataset(self._heap_name(), data=refs)
         vecf64 = ("Core.Array", ("Core.Float64",), ("#int", 1))
         ds.attrs.create(
             "julia_type",
             self._dt_value("Core.Array", [self.type_ref(vecf64),
                                           self._value_ref(np.int64(1))]),
-            dtype=DATATYPE_DTYPE,
+            dtype=_dtypes().DATATYPE,
         )
         return ds.ref
 
@@ -448,8 +466,8 @@ class JLD2Writer:
             "vec": ("Core.Array", ("Core.Float64",), ("#int", 1)),
             "vecvec": ("Core.Array", ("Core.Array", ("Core.Float64",), ("#int", 1)), ("#int", 1)),
         }[vkind]
-        second_np = "<f8" if vkind == "float" else REF_DTYPE
-        pair_np = np.dtype([("first", STR_DTYPE), ("second", second_np)])
+        second_np = "<f8" if vkind == "float" else _dtypes().REF
+        pair_np = np.dtype([("first", _dtypes().STR), ("second", second_np)])
         pair_t = self.commit(
             f"Pair{{Symbol,{vkind}}}", pair_np,
             ("Core.Pair", ("Core.Symbol",), vspec),
@@ -473,14 +491,14 @@ class JLD2Writer:
             "julia_type",
             self._dt_value("Base.Dict",
                            [self.type_ref(("Core.Symbol",)), self.type_ref(vspec)]),
-            dtype=DATATYPE_DTYPE,
+            dtype=_dtypes().DATATYPE,
         )
         return ds.ref
 
     def collection_value(self, coll, vkind: str):
         """Inline compound value for ``Collection{V}`` — its single field is
         a reference to the Dict (/root/reference/src/infrastructure.jl:39-41)."""
-        v = np.zeros((), dtype=_COLL_DTYPE)
+        v = np.zeros((), dtype=_dtypes().COLL)
         v["dict"] = self.dict_ref(dict(coll), vkind)
         return v
 
@@ -492,7 +510,7 @@ def _spacetime_value(w: JLD2Writer, st):
     TwicePrecision hi/lo splits are written as (value, 0.0) — Julia's range
     arithmetic carries sub-ulp residuals in ``lo`` that reconstruct the same
     Float64 sequence to within 1 ulp."""
-    v = np.zeros((), dtype=_SPACETIME_DTYPE)
+    v = np.zeros((), dtype=_dtypes().SPACETIME)
     v["nx"] = st.nx
     v["u"] = w.vec_ref(st.u)
     v["x"] = w.vec_ref(st.x)
@@ -500,7 +518,7 @@ def _spacetime_value(w: JLD2Writer, st):
     v["nt"] = st.nt
     v["dt"] = st.dt
     v["t"] = w.vec_ref(st.t)
-    T = np.zeros((), dtype=_STEPRANGE_DTYPE)
+    T = np.zeros((), dtype=_dtypes().STEPRANGE)
     T["ref"]["hi"], T["ref"]["lo"] = st.dt / 2.0, 0.0
     T["step"]["hi"], T["step"]["lo"] = st.dt, 0.0
     T["len"] = st.dur * st.nt
@@ -509,7 +527,7 @@ def _spacetime_value(w: JLD2Writer, st):
     for season, t_val, inx in (
         ("winter", st.winter, st.winter_inx), ("summer", st.summer, st.summer_inx)
     ):
-        sv = np.zeros((), dtype=_SEASONTICK_DTYPE)
+        sv = np.zeros((), dtype=_dtypes().SEASONTICK)
         sv["t"], sv["inx"] = t_val, inx
         v[season] = sv
     return v
@@ -519,7 +537,7 @@ def _forcing_value(fo):
     """Inline compound for ``Forcing{C}``
     (/root/reference/src/infrastructure.jl:208-215); NTuples as "1".."N"
     compound fields."""
-    v = np.zeros((), dtype=_FORCING_DTYPE)
+    v = np.zeros((), dtype=_dtypes().FORCING)
     v["base"], v["peak"], v["cool"] = fo.base, fo.peak, fo.cool
     for i in (1, 2):
         v["holdyrs"][str(i)] = fo.holdyrs[i - 1]
@@ -550,7 +568,7 @@ def write_jld2(sols, path: str, name: str = None) -> str:
     known h5py-forced deviations; scripts/julia_roundtrip.jl validates
     against real JLD2.jl where Julia is available.
     """
-    with h5py.File(path, "w") as f:
+    with _h5py().File(path, "w") as f:
         w = JLD2Writer(f)
         raw_lists = {
             k: [np.asarray(v)[i] for i in range(np.asarray(v).shape[0])]
@@ -567,19 +585,19 @@ def write_jld2(sols, path: str, name: str = None) -> str:
         fspec = _grid_typeof_spec(sols.spacetime)
         cspec = ("#bool", sols.forcing.constant)
         sol_t = w.commit(
-            "Solutions", _SOLUTIONS_DTYPE,
+            "Solutions", _dtypes().SOLUTIONS,
             (f"{_MODULE_PREFIX}.Solutions", fspec, cspec),
         )
-        v = np.zeros((), dtype=_SOLUTIONS_DTYPE)
+        v = np.zeros((), dtype=_dtypes().SOLUTIONS)
         v["spacetime"] = _spacetime_value(w, sols.spacetime)
         v["ts"] = w.vec_ref(np.asarray(sols.ts))
         v["forcing"] = _forcing_value(sols.forcing)
         v["parameters"] = w.collection_value(sols.parameters, "float")
         v["initconds"] = w.collection_value(sols.initconds, "vec")
         v["lastonly"] = 1 if sols.lastonly else 0
-        v["debug"] = h5py.Reference()  # nothing -> null reference
+        v["debug"] = _h5py().Reference()  # nothing -> null reference
         v["raw"] = w.collection_value(raw_lists, "vecvec")
-        seas = np.zeros((), dtype=_SEASONAL_DTYPE)
+        seas = np.zeros((), dtype=_dtypes().SEASONAL)
         for season in ("winter", "summer", "avg"):
             seas[season] = w.collection_value(seasonal_lists[season], "vecvec")
         v["seasonal"] = seas

@@ -32,22 +32,41 @@ __all__ = [
 class StepConfig:
     """Numerics knobs for a run (static — part of the jit cache key)."""
 
-    solver: str = "pcr"  # tridiagonal solver: 'pcr' (TPU) | 'thomas'
+    solver: str = "pcr"  # tridiagonal solver: 'pcr' (parallel) | 'thomas'
     newton_max_iter: int = 30
     newton_abstol: float = 1e-8  # reference reltol/abstol (/root/reference/src/miz.jl:58-59)
     newton_reltol: float = 1e-6
     newton_max_step: float = None  # trust-region-style step cap (float32 safeguard)
     verbose: bool = False  # warn on Newton non-convergence (reference :61-63)
     spatial_axis: str = None  # mesh axis name when the grid axis is sharded
-    # member-axis mesh name under a 2-D (members x grid) mesh: the Newton
-    # loop CONDITION is then OR-reduced over it so every device runs the
-    # same trip count (per-member norms/tolerances untouched) — divergent
-    # while_loop counts across member rows deadlock runtimes whose
-    # collective rendezvous is global
+    # member-axis mesh name when members are sharded: the Newton loop
+    # CONDITION is then OR-reduced over it so every device runs the same
+    # trip count (per-member norms/tolerances untouched) — the unsharded
+    # run's count, so a sharded ensemble keeps one device's arithmetic;
+    # under a 2-D (members x grid) mesh divergent while_loop counts across
+    # member rows would also deadlock runtimes whose collective rendezvous
+    # is global
     batch_axis: str = None
-    # which array axis holds the grid: -1 (default, x on lanes) or 0 (the
-    # transposed fused-year kernel: x on sublanes, members on lanes)
-    grid_axis: int = -1
+
+
+SOLVERS = ("pcr", "thomas")
+# removed solver names -> what replaced them
+_REMOVED_SOLVERS = {
+    "pallas": "the fixed-iteration Pallas Newton kernel was removed",
+    "pcr_fused": "the Pallas PCR kernel was removed",
+}
+
+
+def check_solver(solver: str) -> None:
+    """Raise a clear ValueError for a removed or unknown solver name."""
+    if solver in _REMOVED_SOLVERS:
+        raise ValueError(
+            f"solver={solver!r} is no longer available "
+            f"({_REMOVED_SOLVERS[solver]}); use solver='pcr' (the default) "
+            "or 'thomas'")
+    if solver not in SOLVERS:
+        raise ValueError(
+            f"unknown solver {solver!r}; expected one of {SOLVERS}")
 
 
 def default_step_config(dtype_name: str, solver: str = "pcr",
@@ -66,6 +85,7 @@ def default_step_config(dtype_name: str, solver: str = "pcr",
         tol = dict(newton_abstol=1e-11, newton_reltol=1e-9)
     else:
         tol = dict(newton_abstol=0.5, newton_reltol=1e-4, newton_max_step=50.0)
+    check_solver(solver)
     tol.update(overrides)
     return StepConfig(solver=solver, **tol)
 

@@ -124,13 +124,10 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     rhs = Tg + stat.dt_tau * (
         E_new / par["cw"] * nonnegn + (par["ai"] * S_ip1 - par["A"] + f) / denom * mask
     )
-    if cfg.spatial_axis is not None:
-        method = "spike"
-    else:
-        method = "pcr" if cfg.solver == "pallas" else cfg.solver
+    method = "spike" if cfg.spatial_axis is not None else cfg.solver
     Tg_new = tridiag_solve(
         stat.klo, kdi, stat.kup, rhs, method=method,
-        axis_name=cfg.spatial_axis, axis=cfg.grid_axis,
+        axis_name=cfg.spatial_axis,
     )
 
     h = -E_new / par["Lf"] * negn  # diagnostic ice thickness (:65)

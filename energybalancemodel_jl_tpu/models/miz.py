@@ -57,9 +57,7 @@ def statics(st, par, dtype):
         gdi=jnp.asarray(geom.di, dtype=dtype),
         gup=jnp.asarray(geom.up, dtype=dtype),
         dt=st.dt,
-        # scalar Tm^m2 of ``wlat`` (:71) hoisted out of the step: same value,
-        # and the fused year kernel avoids an in-kernel float power (Mosaic
-        # has no powf lowering)
+        # scalar Tm^m2 of ``wlat`` (:71), hoisted out of the step
         Tm_pow_m2=par["Tm"] ** par["m2"],
     )
 
@@ -83,15 +81,15 @@ def step_inputs(stat, fyear):
     return dict(insol=stat.insol, f=fyear)
 
 
-def _dstencil(stat, par, v, axis_name=None, axis=-1):
+def _dstencil(stat, par, v, axis_name=None):
     """``D∇²v`` via the precomputed bands (rebuild of ``diffusion!``
     /root/reference/src/infrastructure.jl:505-527); halo exchange when the
     grid axis is sharded."""
-    vm1, vp1 = neighbor_cells(v, axis_name, axis)
+    vm1, vp1 = neighbor_cells(v, axis_name)
     return par["D"] * (stat.glo * vm1 + stat.gdi * v + stat.gup * vp1)
 
 
-def _t0_residual(T0, args, axis_name=None, axis=-1):
+def _t0_residual(T0, args, axis_name=None):
     """The ``T0eq`` residual (/root/reference/src/miz.jl:33-45) as a pure
     function of explicit arrays (differentiable in every input)."""
     insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
@@ -100,17 +98,17 @@ def _t0_residual(T0, args, axis_name=None, axis=-1):
     r = k * (Tm - T0) / hp
     r = r + ai * insol
     r = r + ((-A) - B * (T0 - Tm))
-    Tbm1, Tbp1 = neighbor_cells(Tb, axis_name, axis)
+    Tbm1, Tbp1 = neighbor_cells(Tb, axis_name)
     r = r + D * (glo * Tbm1 + gdi * Tb + gup * Tbp1)
     r = r + f
     return r
 
 
-def _t0_bands(T0, args, axis_name=None, axis=-1):
+def _t0_bands(T0, args, axis_name=None):
     """Analytic tridiagonal Jacobian bands of :func:`_t0_residual`."""
     insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
     g = phi * (T0 < Tm).astype(T0.dtype)
-    gm1, gp1 = neighbor_cells(g, axis_name, axis)
+    gm1, gp1 = neighbor_cells(g, axis_name)
     jlo = D * glo * gm1
     jdi = -k / hp - B + D * gdi * g
     jup = D * gup * gp1
@@ -118,19 +116,15 @@ def _t0_bands(T0, args, axis_name=None, axis=-1):
 
 
 def _solver_method(cfg: StepConfig) -> str:
-    if cfg.spatial_axis is not None:
-        return "spike"
-    if cfg.solver == "pallas":
-        return "pcr"
-    return cfg.solver
+    return "spike" if cfg.spatial_axis is not None else cfg.solver
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def _newton_root(T0_warm, args, cfg: StepConfig):
     def residual_and_bands(T0):
         return (
-            _t0_residual(T0, args, cfg.spatial_axis, cfg.grid_axis),
-            _t0_bands(T0, args, cfg.spatial_axis, cfg.grid_axis),
+            _t0_residual(T0, args, cfg.spatial_axis),
+            _t0_bands(T0, args, cfg.spatial_axis),
         )
 
     return newton_tridiag(
@@ -142,7 +136,6 @@ def _newton_root(T0_warm, args, cfg: StepConfig):
         method=_solver_method(cfg),
         axis_name=cfg.spatial_axis,
         cond_axis_name=cfg.batch_axis,
-        axis=cfg.grid_axis,
         # float32 config caps the update: physical surface temperatures move
         # by at most a few K per step from a warm start, and the cap keeps
         # low-precision iterates from blowing up through the min(T0, Tm) kink
@@ -168,20 +161,19 @@ def _newton_root_bwd(cfg, residuals, cotangents):
     T0 = jnp.asarray(T0)
     args = jax.tree_util.tree_map(jnp.asarray, args)
     gT0 = cotangents[0]
-    jlo, jdi, jup = _t0_bands(T0, args, cfg.spatial_axis, cfg.grid_axis)
+    jlo, jdi, jup = _t0_bands(T0, args, cfg.spatial_axis)
     # transpose bands: (J^T)lo[i] = jup[i-1], (J^T)up[i] = jlo[i+1]; the
     # shifted-in boundary entries are multiples of the zero stencil-boundary
     # bands, so neighbor exchange (or plain rolls) are safe
-    jup_m1, _ = neighbor_cells(jup, cfg.spatial_axis, cfg.grid_axis)
-    _, jlo_p1 = neighbor_cells(jlo, cfg.spatial_axis, cfg.grid_axis)
+    jup_m1, _ = neighbor_cells(jup, cfg.spatial_axis)
+    _, jlo_p1 = neighbor_cells(jlo, cfg.spatial_axis)
     lam = tridiag_solve(
         jup_m1, jdi, jlo_p1, gT0,
         method=_solver_method(cfg),
         axis_name=cfg.spatial_axis,
-        axis=cfg.grid_axis,
     )
     _, vjp_fn = jax.vjp(
-        lambda a: _t0_residual(T0, a, cfg.spatial_axis, cfg.grid_axis), args
+        lambda a: _t0_residual(T0, a, cfg.spatial_axis), args
     )
     (g_args,) = vjp_fn(-lam)
     return jnp.zeros_like(T0), g_args
@@ -204,58 +196,11 @@ def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
     (reverse-mode AD flows through the root, not the iteration).
     """
     hp = jnp.where(h == 0.0, par["hmin"], h)
-
-    if cfg.solver == "pallas" and T0_warm.ndim >= 2 and cfg.spatial_axis is None:
-        return _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg)
-
     args = (
         insol, hp, Tw, phi, f, stat.glo, stat.gdi, stat.gup,
         par["k"], par["Tm"], par["A"], par["B"], par["ai"], par["D"],
     )
     return _newton_root(T0_warm, args, cfg)
-
-
-def _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg: StepConfig):
-    """Batched fast path: the fused Pallas Newton kernel
-    (:mod:`..ops.pallas_newton`) — fixed iterations, whole solve in VMEM.
-    Requires scalar (non-swept) ``k/Tm/A/B/ai``; per-member ``D`` is fine."""
-    from ..ops.pallas_newton import default_interpret, pallas_solve_T0
-
-    K = T0_warm.shape[0]
-    nx = T0_warm.shape[-1]
-
-    def scal(name):
-        v = par[name]
-        if jnp.ndim(v) != 0:
-            raise ValueError(
-                f"solver='pallas' requires scalar parameter {name!r}; "
-                "sweep it with the vmap engine instead"
-            )
-        return v
-
-    D = par["D"]
-    D_vec = (
-        jnp.broadcast_to(jnp.reshape(D, (-1,)), (K,))
-        if jnp.ndim(D) > 0
-        else jnp.full((K,), D, dtype=T0_warm.dtype)
-    )
-    bt = lambda v: jnp.broadcast_to(v, (K, nx))
-    T0 = pallas_solve_T0(
-        T0_warm, bt(hp), bt(Tw), bt(phi), bt(insol),
-        stat.glo, stat.gdi, stat.gup, D_vec,
-        scal("k"), scal("Tm"), scal("A"), scal("B"), scal("ai"), f,
-        max_step=cfg.newton_max_step or 50.0,
-        iters=min(cfg.newton_max_iter, 6),
-        interpret=default_interpret(),
-    )
-    # one residual evaluation for the convergence diagnostic
-    Ti = jnp.minimum(T0, par["Tm"])
-    Tb = Ti * phi + (1.0 - phi) * Tw
-    r = par["k"] * (par["Tm"] - T0) / hp + par["ai"] * insol
-    r = r + ((-par["A"]) - par["B"] * (T0 - par["Tm"]))
-    r = r + _dstencil(stat, par, Tb) + f
-    converged = jnp.max(jnp.abs(r), axis=-1) <= cfg.newton_abstol * 4.0
-    return T0, converged, jnp.int32(min(cfg.newton_max_iter, 6))
 
 
 def step(carry, xs, stat, par, cfg: StepConfig):
@@ -295,7 +240,7 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     # -- fluxes (:162-164) ---------------------------------------------
     Tb = Ti * phi + (1.0 - phi) * Tw  # Tbar (:21-28)
     L = par["A"] + par["B"] * (Tb - Tm)  # OLR (:99)
-    dTb = _dstencil(stat, par, Tb, cfg.spatial_axis, cfg.grid_axis)
+    dTb = _dstencil(stat, par, Tb, cfg.spatial_axis)
     Fvi = par["ai"] * insol - L + dTb + par["Fb"] + f  # vert_flux ice (:96-101)
     Fvw = stat.aw * insol - L + dTb + par["Fb"] + f  # vert_flux water
     wl = par["m1"] * (Tw - stat["Tm_pow_m2"])  # wlat (:71) — exponent binds to Tm

@@ -73,21 +73,19 @@ def diffusion_bands(st) -> DiffusionGeometry:
     return DiffusionGeometry(lo=lo, di=di, up=up)
 
 
-def neighbor_cells(v, axis_name=None, axis: int = -1):
-    """``(v_{i-1}, v_{i+1})`` along the grid ``axis`` (default last).
+def neighbor_cells(v, axis_name=None):
+    """``(v_{i-1}, v_{i+1})`` along the grid (last) axis.
 
     Single-shard: boundary-rolled values (multiplied by zero band entries at
     the boundaries, so wraparound is harmless). With ``axis_name`` set (grid
     axis sharded under ``shard_map``): one-cell halo exchange with the ring
-    neighbors via ``lax.ppermute`` (last axis only).
+    neighbors via ``lax.ppermute``.
     """
     import jax.numpy as _jnp
     from jax import lax as _lax
 
     if axis_name is None:
-        return _jnp.roll(v, 1, axis=axis), _jnp.roll(v, -1, axis=axis)
-    if axis not in (-1, v.ndim - 1):
-        raise ValueError("halo exchange is only supported along the last axis")
+        return _jnp.roll(v, 1, axis=-1), _jnp.roll(v, -1, axis=-1)
     P = _lax.psum(1, axis_name)
     fwd = [(k, (k + 1) % P) for k in range(P)]
     bwd = [(k, (k - 1) % P) for k in range(P)]
@@ -103,7 +101,7 @@ def apply_diffusion(T, geom, D):
 
     Boundary-rolled neighbors are multiplied by zero band entries, so
     ``jnp.roll`` is safe and keeps the expression a single fused elementwise
-    op on TPU (no scatter/gather).
+    op (no scatter/gather).
     """
     Tm1 = jnp.roll(T, 1, axis=-1)
     Tp1 = jnp.roll(T, -1, axis=-1)

@@ -1,6 +1,6 @@
 """Newton solver for nonlinear systems with tridiagonal Jacobians.
 
-TPU-native replacement for the reference's ``NonlinearSolve.TrustRegion``
+Replacement for the reference's ``NonlinearSolve.TrustRegion``
 inner solver (/root/reference/src/miz.jl:55-60). The MIZ ice-surface
 temperature residual couples neighbors only through the 3-point diffusion
 stencil, so its Jacobian is analytically tridiagonal; a warm-started Newton
@@ -29,7 +29,6 @@ def newton_tridiag(
     max_step: float = None,
     axis_name: str = None,
     cond_axis_name: str = None,
-    axis: int = -1,
 ):
     """Solve ``r(x) = 0`` where ``J = dr/dx`` is tridiagonal.
 
@@ -48,7 +47,7 @@ def newton_tridiag(
     max_iter:
         Static iteration cap (keeps the loop bounded under jit).
     method:
-        Tridiagonal solver: ``'pcr'`` (TPU fast path) or ``'thomas'``.
+        Tridiagonal solver: ``'pcr'`` (default) or ``'thomas'``.
     max_step:
         Optional elementwise cap on the Newton update — trust-region-style
         safeguard against float32 blow-ups on ill-conditioned iterates
@@ -62,9 +61,6 @@ def newton_tridiag(
         the same global-trip-count semantics). Per-member norms,
         tolerances, and the returned ``converged`` flags are untouched —
         members of other rows only keep the loop alive.
-    axis:
-        System axis of the tridiagonal Jacobian (default last; the
-        transposed fused-year kernel solves along the sublane axis 0).
 
     Returns
     -------
@@ -75,7 +71,7 @@ def newton_tridiag(
         # with a sharded grid axis, the convergence decision must be
         # identical on every shard (the body contains collectives — a
         # per-shard loop count would deadlock), so reduce over the mesh
-        n = jnp.max(jnp.abs(r), axis=axis)
+        n = jnp.max(jnp.abs(r), axis=-1)
         if axis_name is not None:
             n = lax.pmax(n, axis_name)
         return n
@@ -96,7 +92,7 @@ def newton_tridiag(
         # previous iteration — one evaluation per Newton step
         x, r, (lo, di, up), it, _ = state
         delta = tridiag_solve(
-            lo, di, up, -r, method=method, axis_name=axis_name, axis=axis
+            lo, di, up, -r, method=method, axis_name=axis_name
         )
         if max_step is not None:
             delta = jnp.clip(delta, -max_step, max_step)

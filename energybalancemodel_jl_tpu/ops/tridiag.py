@@ -4,14 +4,14 @@ The reference's two native solves — UMFPACK ``kappa \\ rhs`` in the classic
 implicit ghost-layer step (/root/reference/src/classic.jl:55-63) and the
 LAPACK-backed TrustRegion inner solves in the MIZ model
 (/root/reference/src/miz.jl:55-60) — both act on strictly tridiagonal
-systems. On TPU no general sparse machinery is needed; two solvers are
+systems, so no general sparse machinery is needed; two solvers are
 provided:
 
 - :func:`thomas_solve` — sequential Thomas algorithm as a ``lax.scan``.
   O(n) work, O(n) sequential depth. Exact parity path.
 - :func:`pcr_solve` — parallel cyclic reduction: ``ceil(log2(n))`` fully
   vectorized elimination sweeps, O(n log n) work but O(log n) sequential
-  depth. This is the TPU fast path: each sweep is a handful of fused VPU
+  depth. This is the default: each sweep is a handful of fused
   elementwise ops over the whole system (and over the whole vmapped
   ensemble), instead of a 2n-step device loop.
 
@@ -59,13 +59,13 @@ def thomas_solve(lo, di, up, b):
     return xs
 
 
-def _shift(v, s, axis: int = -1):
-    """Shift ``v`` by ``s`` along ``axis``, filling with zeros.
+def _shift(v, s):
+    """Shift ``v`` by ``s`` along the last axis, filling with zeros.
 
     ``s > 0`` moves entries toward higher indices (out[i] = v[i-s]).
     Static ``s`` — compiles to a pad+slice, no gather.
     """
-    axis = axis % v.ndim
+    axis = v.ndim - 1
     n = v.shape[axis]
     if s == 0 or abs(s) >= n:
         return jnp.zeros_like(v) if abs(s) >= n else v
@@ -80,7 +80,7 @@ def _shift(v, s, axis: int = -1):
     return jnp.pad(v, pad)[tuple(index)]
 
 
-def pcr_solve(lo, di, up, b, axis: int = -1):
+def pcr_solve(lo, di, up, b):
     """Solve a tridiagonal system by parallel cyclic reduction.
 
     At stride ``s`` every equation eliminates its ``±s`` neighbors:
@@ -94,20 +94,8 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
     Out-of-range neighbors are identity rows (di = 1, off-diagonals and rhs 0),
     realized by zero-filled shifts of the bands and a ones-filled shift of the
     diagonal. Works on ``(..., n)`` operands — already batched, no vmap needed.
-    ``axis`` selects the system axis (default last; the transposed fused-year
-    kernel solves along the sublane axis 0).
     """
-    if axis not in (-1, b.ndim - 1):
-        for name, band in (("lo", lo), ("di", di), ("up", up)):
-            if jnp.ndim(band) != b.ndim:
-                # lower-rank bands broadcast against the trailing axes, which
-                # is only the system axis when axis == -1; anything else
-                # would silently couple the wrong axis
-                raise ValueError(
-                    f"pcr_solve with axis={axis} needs full-rank bands; "
-                    f"{name} has ndim {jnp.ndim(band)} vs rhs ndim {b.ndim}"
-                )
-    n = b.shape[axis]
+    n = b.shape[-1]
     steps = max(1, math.ceil(math.log2(n))) if n > 1 else 0
     one = jnp.ones((), dtype=b.dtype)
 
@@ -121,8 +109,8 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
 
     def shift_di(d, s):
         # out-of-range diagonal = 1 (identity row)
-        shifted = _shift(d, s, axis)
-        mask = _shift(jnp.ones_like(d), s, axis)
+        shifted = _shift(d, s)
+        mask = _shift(jnp.ones_like(d), s)
         return shifted + (one - mask)
 
     def safe_div(num, den):
@@ -137,36 +125,23 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
         di_p = shift_di(di, -s)
         alpha = safe_div(-lo, di_m)
         beta = safe_div(-up, di_p)
-        b = b + alpha * _shift(b, s, axis) + beta * _shift(b, -s, axis)
-        di = di + alpha * _shift(up, s, axis) + beta * _shift(lo, -s, axis)
-        lo = alpha * _shift(lo, s, axis)
-        up = beta * _shift(up, -s, axis)
+        b = b + alpha * _shift(b, s) + beta * _shift(b, -s)
+        di = di + alpha * _shift(up, s) + beta * _shift(lo, -s)
+        lo = alpha * _shift(lo, s)
+        up = beta * _shift(up, -s)
         s *= 2
     return b / di
 
 
-def tridiag_solve(lo, di, up, b, method: str = "pcr", axis_name: str = None,
-                  axis: int = -1):
-    """Dispatch between :func:`pcr_solve` (default, TPU fast path),
+def tridiag_solve(lo, di, up, b, method: str = "pcr", axis_name: str = None):
+    """Dispatch between :func:`pcr_solve` (default),
     :func:`thomas_solve` (``method='thomas'``, sequential parity path), and
     the distributed :func:`~.spike.spike_tridiag_solve` (``method='spike'``,
-    grid axis sharded over ``axis_name``). ``axis`` (PCR only) selects the
-    system axis."""
-    if axis not in (-1, b.ndim - 1) and method != "pcr":
-        raise ValueError(f"method {method!r} only solves along the last axis")
+    grid axis sharded over ``axis_name``)."""
     if method == "spike":
         from .spike import spike_tridiag_solve
 
         return spike_tridiag_solve(lo, di, up, b, axis_name)
-    if method == "pcr_fused":
-        # fused Pallas kernel (one launch for the whole solve) for batched
-        # 2-D systems; falls back to the XLA path otherwise
-        if b.ndim == 2:
-            from .pallas_newton import default_interpret
-            from .pallas_tridiag import pallas_pcr_solve
-
-            return pallas_pcr_solve(lo, di, up, b, interpret=default_interpret())
-        return pcr_solve(lo, di, up, b)
     if method == "thomas":
         if b.ndim == 1:
             return thomas_solve(lo, di, up, b)
@@ -178,5 +153,5 @@ def tridiag_solve(lo, di, up, b, method: str = "pcr", axis_name: str = None,
         up_b = jnp.broadcast_to(up, b.shape)
         return flat_solve(lo_b, di_b, up_b, b)
     if method == "pcr":
-        return pcr_solve(lo, di, up, b, axis=axis)
+        return pcr_solve(lo, di, up, b)
     raise ValueError(f"Unknown tridiagonal solver {method!r}")

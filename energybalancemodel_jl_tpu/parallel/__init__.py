@@ -3,7 +3,7 @@ single-process/single-thread — SURVEY.md §2 "Parallelism: none").
 
 - :mod:`.ensemble` — ``vmap`` parameter ensembles on one chip.
 - :mod:`.sharding` — data parallelism over a ``jax.sharding.Mesh`` (ensemble
-  members sharded across chips over ICI; no collectives in the hot loop).
+  members sharded across devices; no collectives in the hot loop).
 - :mod:`.halo` — spatial domain decomposition of the diffusion stencil via
   ``shard_map`` + ``ppermute`` halo exchange (for very high-resolution grids).
 - :mod:`.spatial` — grid-sharded single runs (halo exchange + distributed

@@ -1,9 +1,9 @@
 """On-chip parameter ensembles via ``vmap``.
 
 The reference runs parameter sweeps (bifurcation/hysteresis studies over
-D/F/A/B) as sequential ``integrate`` calls; on TPU the 180-point grid is tiny
-(a few KB of state), so the device-utilization lever is batching whole
-ensembles of independent runs into one ``vmap``-ed scan — SURVEY.md §2's
+D/F/A/B) as sequential ``integrate`` calls; on an accelerator the 180-point
+grid is tiny (a few KB of state), so the device-utilization lever is
+batching whole ensembles of independent runs into one ``vmap``-ed scan — SURVEY.md §2's
 "batch/ensemble parallelism". A parameter Collection may mix scalars (shared)
 and ``(K,)`` arrays (swept); the per-run statics (insolation tables, implicit
 bands) are traced functions of the parameters, so sweeping any parameter
@@ -24,6 +24,7 @@ from jax import lax
 
 from ..forcing import Forcing
 from ..integrate import _split_chunks, default_dtype, make_year_fn
+from ..engine import auto_whole_year, check_whole_year
 from ..models.base import default_step_config, get_model
 from ..solutions import Seasonal
 from ..spacetime import SpaceTime
@@ -177,11 +178,45 @@ TABLE_PARAMS = frozenset({"S0", "S1", "S2", "a0", "a2"})
 def _native_year_fn(model_name, st, cfg, dtype_name, collect_raw, donate):
     """Batch-native jitted year function: the physics steps are
     shape-polymorphic over a leading ensemble axis (batched parameters enter
-    with a trailing broadcast axis), so no ``vmap`` is needed. This is the
-    engine that can dispatch the MIZ surface-temperature solve to the fused
-    Pallas kernel (``solver='pallas'``)."""
+    with a trailing broadcast axis), so no ``vmap`` is needed."""
     fn = make_year_fn(model_name, st, cfg, dtype_name, collect_raw)
     return jax.jit(fn, donate_argnums=(0,) if donate else ())
+
+
+@functools.lru_cache(maxsize=32)
+def _fused_year_fns(model_name, st, cfg, dtype_name, mesh, par_key):
+    """Jitted whole-year engine ``(carry, par, fyear) -> (carry, Seasonal,
+    converged)`` and its multi-year chunk ``(carry, par, f_years) ->
+    (carry, stacked Seasonal)``, cached across ensemble calls; with a
+    ``mesh`` the year is shard-mapped over it. ``par_key`` is the hashable
+    ``(name, is_swept)`` summary of the parameters (the shard_map specs
+    depend only on which leaves are per-member)."""
+    if mesh is None:
+        from ..ops.year import classic_year, miz_year
+
+        year_fn = miz_year if model_name == "MIZ" else classic_year
+
+        @jax.jit
+        def year(carry, par, fy):
+            c, seas, conv, _ = year_fn(carry, par, fy, st, cfg)
+            return c, seas, conv
+    else:
+        from .sharding import shard_map_fused_year_fn
+
+        par_tmpl = Collection(
+            {k: (np.zeros(2) if swept else 0.0) for k, swept in par_key})
+        year = shard_map_fused_year_fn(st, mesh, par_tmpl, dtype_name, cfg,
+                                       model=model_name)
+
+    @jax.jit
+    def chunk(carry, par, f_years):
+        def body(c, fy):
+            c, seas, _ = year(c, par, fy)
+            return c, seas
+
+        return lax.scan(body, carry, f_years)
+
+    return year, chunk
 
 
 def _check_raw_all_budget(K, st, n_vars: int, itemsize: int,
@@ -246,10 +281,13 @@ def ensemble_integrate(
     ``progress`` shows a per-year progress bar (reference-style, as in
     :func:`~energybalancemodel_jl_tpu.integrate`); default on.
 
-    ``engine='auto'`` (default) picks the fused whole-year kernel on TPU
-    (the throughput engine) unless the run needs an XLA-engine feature
-    (``solver='thomas'/'pallas'``, a sharding ``jit_wrapper``, a custom
-    model without a kernel); elsewhere it picks ``'batched'``/``'vmap'``.
+    ``engine='auto'`` (default) picks between the whole-year engine
+    ``'fused'`` (:mod:`..ops.year`) and the per-year engines with the policy
+    the drivers share (:func:`..engine.auto_whole_year`): ``'fused'`` for
+    MIZ and Classic unless the run needs a per-year-engine feature (the
+    Thomas solver, a sharding ``jit_wrapper``, ``raw_mode='all'``), then
+    ``'batched'`` (or ``'vmap'`` for swept table parameters or a
+    ``jit_wrapper``).
 
     ``checkpoint`` names an HDF5 file written every ``checkpoint_every``
     simulated years (the full ensemble carry + per-year seasonal storage);
@@ -257,20 +295,16 @@ def ensemble_integrate(
     the first unfinished year (same protocol as
     :func:`~energybalancemodel_jl_tpu.integrate`, see :mod:`..checkpoint`).
 
-    ``mesh`` (with ``engine='fused'``): a 1-D ``jax.sharding.Mesh`` — each
-    chip runs the whole-year kernel on its ensemble shard (pure DP over
-    ICI, zero hot-loop collectives); requires ``raw_mode='none'`` and ``K``
-    divisible by the mesh size.
+    ``mesh`` (with ``engine='fused'``/``'auto'``): a 1-D
+    ``jax.sharding.Mesh`` — each device runs the whole-year engine on its
+    ensemble shard, with the Newton loop condition OR-reduced over the
+    mesh so the sharded run follows one device's arithmetic;
+    requires ``raw_mode='none'`` and ``K`` divisible by the mesh size.
 
     ``years_per_dispatch > 1`` (``engine='fused'`` only) batches that many
     consecutive seasonal-only years into one dispatch — a ``lax.scan`` over
-    the whole-year kernel. The kernel is a black box the scan feeds the
-    carry through, so results (and checkpoints) are bitwise
-    chunking-invariant. Default (``None``): 8 for the fused engine (a pure
-    dispatch-latency win), 1 for the XLA engines. Keep each chunk's device
-    time under ~30 s: a single dispatch running multiple minutes kills the
-    remote-TPU worker process (execution watchdog — measured,
-    BENCH_NOTES.md).
+    the whole-year engine. Default (``None``): 8 for the fused engine, 1
+    for the XLA per-year engines.
     """
     spec = get_model(model)
     if raw_mode not in ("none", "last", "all"):
@@ -309,30 +343,12 @@ def ensemble_integrate(
     batched_names = {k for k, v in par_j.items() if jnp.ndim(v) > 0}
     batched_legal = not (batched_names & TABLE_PARAMS)
     if engine == "auto":
-        # on TPU the fused whole-year kernel is the throughput engine
-        # (~5x the XLA paths, BENCH_NOTES.md) and covers every sweep; pick
-        # it whenever the run doesn't need an XLA-engine-only feature
-        # (solver choice, sharding jit wrappers, a model without a kernel,
-        # float64 — the x64 parity config has no practical Mosaic path) and
-        # the kernel's VMEM fit predicates admit the configuration.
-        # On CPU the kernels run in interpret mode (slow) — stay on XLA.
-        use_fused = (
-            jax.default_backend() == "tpu"
-            and spec.name in ("MIZ", "Classic")
-            and jit_wrapper is None
-            and solver in ("pcr", "pcr_fused")
-            and dtype != jnp.float64
-            and raw_mode != "all"  # every year collects -> pure XLA run
+        whole = auto_whole_year(
+            spec.name,
+            per_year_only=(jit_wrapper is not None or solver != "pcr"
+                           or raw_mode == "all"),
         )
-        if use_fused:
-            from ..ops.pallas_year import fused_unfit
-
-            # under a mesh each chip's kernel sees K/size members — judge
-            # the 'kx' member-block working set per shard (review r3b)
-            K_fit = int(K) // (mesh.size if mesh is not None else 1)
-            use_fused = fused_unfit(spec.name, st, dtype, par_j,
-                                    K=max(K_fit, 1)) is None
-        if use_fused:
+        if whole:
             engine = "fused"
         else:
             engine = "batched" if (batched_legal and jit_wrapper is None) else "vmap"
@@ -359,33 +375,19 @@ def ensemble_integrate(
             f"engine='batched' cannot sweep table parameters "
             f"{sorted(batched_names & TABLE_PARAMS)}; use engine='vmap'"
         )
-    if solver == "pallas" and engine != "batched":
-        raise ValueError("solver='pallas' requires engine='batched'")
     if engine == "fused":
-        # whole-year Pallas kernel (ops/pallas_year.py): the entire nt-step
-        # year runs in VMEM per K-block — the throughput engine
+        # whole-year engine (ops/year.py): the entire nt-step year is one
+        # jitted program over the (K, nx) ensemble
         if raw_mode == "all":
             raise ValueError(
-                "engine='fused' supports raw_mode 'none'|'last' (the kernel "
-                "stores seasonal data in VMEM); raw_mode='all' runs on the "
-                "XLA engines — use engine='auto'/'batched'/'vmap'"
+                "engine='fused' supports raw_mode 'none'|'last' (it stores "
+                "seasonal data only); raw_mode='all' runs on the per-year "
+                "engines — use engine='auto'/'batched'/'vmap'"
             )
-        if spec.name not in ("MIZ", "Classic"):
-            raise ValueError(
-                f"engine='fused' has no whole-year kernel for model "
-                f"{spec.name!r}; use engine='vmap' or 'batched'"
-            )
+        check_whole_year(spec.name, "engine='vmap' or 'batched'")
         if jit_wrapper is not None:
             raise ValueError("engine='fused' does not compose with sharding "
                              "jit wrappers; use engine='vmap'")
-        # table-parameter sweeps run fine in the fused 'xk' kernel (it
-        # rebuilds the separable insolation from per-member rows); only the
-        # raw-collect fallback year must then use the vmap engine instead of
-        # the batch-native one (which shares one insolation table)
-        from ..ops.pallas_year import (
-            default_interpret, pallas_classic_year, pallas_miz_year,
-        )
-
         par_fused = Collection(par_j)
         if F_off is not None:
             par_fused["F"] = jnp.asarray(F_off, dtype=dtype)
@@ -400,30 +402,20 @@ def ensemble_integrate(
                     f"ensemble size {K} is not divisible by the mesh size "
                     f"{mesh.size}"
                 )
-            from .sharding import shard_map_fused_year_fn
+        par_key = tuple(sorted((k, jnp.ndim(v) > 0)
+                               for k, v in par_fused.items()))
+        fused_year, fused_chunk = _fused_year_fns(
+            spec.name, st, cfg, dtype.name, mesh, par_key)
 
-            sharded_fn = shard_map_fused_year_fn(
-                st, mesh, par_fused, dtype.name, cfg, model=spec.name,
-            )
-
-            def run_seasonal_fused(carry, p, fy):
-                c, seas, conv = sharded_fn(carry, par_fused, fy)
-                return c, seas, conv, None
-        else:
-            year_kernel = (
-                pallas_miz_year if spec.name == "MIZ" else pallas_classic_year
-            )
-            interp = default_interpret()
-
-            def run_seasonal_fused(carry, p, fy):
-                return year_kernel(carry, par_fused, fy, st, cfg,
-                                   interpret=interp)
+        def run_seasonal_fused(carry, p, fy):
+            c, seas, conv = fused_year(carry, par_fused, fy)
+            return c, seas, conv, None
 
     if engine == "fused":
-        # seasonal years run in the fused kernel; a raw-collect year falls
-        # back to an XLA path with the identical carry pytree — batch-native
-        # normally, vmap when table parameters are swept (only the vmap
-        # engine builds per-member insolation tables outside the kernel)
+        # seasonal years run in the whole-year engine; a raw-collect year
+        # falls back to a per-year engine with the identical carry pytree —
+        # batch-native normally, vmap when table parameters are swept (only
+        # the vmap engine builds per-member insolation tables)
         if batched_legal:
             par_aug = _augment_batched(par_j)
             native_full = _native_year_fn(
@@ -465,16 +457,11 @@ def ensemble_integrate(
 
     fused_years = None
     if engine == "fused" and years_per_dispatch > 1:
-        # one dispatch per chunk: scan the whole-year kernel over years.
-        # jit re-specializes per chunk length, so one wrapper serves all
-        # chunk sizes (at most two arise: the steady size and a remainder).
-        @jax.jit
+        # one dispatch per chunk: a lax.scan of the whole-year engine over
+        # years (jit re-specializes per chunk length: at most two arise,
+        # the steady size and a remainder)
         def fused_years(carry, f_years):
-            def body(c, fy):
-                c, seas, _conv, _ = run_seasonal_fused(c, None, fy)
-                return c, seas
-
-            return lax.scan(body, carry, f_years)
+            return fused_chunk(carry, par_fused, f_years)
 
     # broadcast initial conditions to (K, nx)
     carry = spec.init_carry(init, st, dtype)
@@ -498,8 +485,8 @@ def ensemble_integrate(
         if F_off is None:
             return f_tab[year]
         if engine == "fused" and not collect:
-            # the kernel applies the per-member offset itself (an extra
-            # parameter lane); it consumes the shared rows
+            # the whole-year engine applies the per-member offset itself
+            # (par['F']); it consumes the shared rows
             return f_base[year]
         fy = f_tab[:, year]  # (K, nt) per-member rows
         if engine == "batched" or (engine == "fused" and collect and batched_legal):
@@ -582,7 +569,7 @@ def ensemble_integrate(
             prog.update(y, feedargs=(y,))
 
     # one bulk device->host fetch (per-leaf np.asarray would pay a round-trip
-    # per array on remote/tunneled TPUs)
+    # per array)
     winter_acc, summer_acc, avg_acc, raw_years = jax.device_get(
         (winter_acc, summer_acc, avg_acc, raw_years)
     )
@@ -639,7 +626,7 @@ def sweep(
     """Product-grid parameter sweep (bifurcation/hysteresis driver).
 
     Example: ``sweep('MIZ', st, ramp, par, {'D': np.linspace(0.4, 0.8, 32)},
-    init)`` runs 32 diffusivities as one on-chip ensemble."""
+    init)`` runs 32 diffusivities as one device ensemble."""
     return ensemble_integrate(
         model, st, forcing, batched_parameters(base_par, sweeps), init, **kwargs
     )

@@ -2,8 +2,7 @@
 
 The 3-point meridional stencil (SURVEY.md §3.5) shards over the grid axis:
 each device owns a contiguous block of latitudes and exchanges one boundary
-cell with each neighbor per application via ``lax.ppermute`` over the ICI
-ring. Only worthwhile at very high resolution (nx >> 1e4, SURVEY.md §5); at
+cell with each neighbor per application via ``lax.ppermute``. Only worthwhile at very high resolution (nx >> 1e4, SURVEY.md §5); at
 the reference's nx = 180 the ensemble axis is the right one — this module
 exists to scale the grid axis when a user needs it, and as the framework's
 "sequence/spatial parallel" demonstration.

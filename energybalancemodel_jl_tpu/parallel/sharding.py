@@ -1,15 +1,16 @@
 """Multi-chip data parallelism over a device mesh.
 
 The reference has no distributed layer (SURVEY.md §2: no MPI/NCCL/threads);
-the TPU-native scaling axis is the *ensemble*: members are independent, so
-sharding the leading ensemble axis of the vmapped scan over a 1-D
+the scaling axis is the *ensemble*: members are independent, so sharding
+the leading ensemble axis of the vmapped scan over a 1-D
 ``jax.sharding.Mesh`` is pure DP — XLA inserts no collectives in the hot
-loop, results gather over ICI only when the host reads them. A ``shard_map``
+loop, results gather only when the host reads them. A ``shard_map``
 training-step variant with a ``psum`` ensemble-mean diagnostic is provided to
 exercise explicit collectives (used by the multi-chip dry run).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import jax
@@ -31,8 +32,7 @@ __all__ = [
 
 
 def ensemble_mesh(n_devices: Optional[int] = None, axis: str = "ensemble") -> Mesh:
-    """A 1-D mesh over (the first ``n_devices``) local devices; ensemble
-    members ride the ICI ring."""
+    """A 1-D mesh over (the first ``n_devices``) local devices."""
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
@@ -143,39 +143,37 @@ def shard_map_year_fn(model_name: str, st, mesh: Mesh, dtype_name: str = "float3
 def shard_map_fused_year_fn(st, mesh: Mesh, par: Collection,
                             dtype_name: str = "float32",
                             cfg: Optional[StepConfig] = None,
-                            block_k: int = 128,
                             model: str = "MIZ"):
-    """Multi-chip fused-year step: each chip runs the whole-year Pallas
-    kernel (:mod:`..ops.pallas_year`) on its local ensemble shard — pure DP,
-    zero collectives in the hot loop (SURVEY.md §2: the ensemble is the
-    scalable axis).
+    """Multi-device whole-year step: each device runs the whole-year engine
+    (:mod:`..ops.year`) on its local ensemble shard (SURVEY.md §2: the
+    ensemble is the scalable axis). The adaptive Newton loop's condition is
+    OR-reduced over the mesh (``StepConfig.batch_axis``), so every shard
+    runs the unsharded run's iteration count and the sharded ensemble
+    follows the same arithmetic as one device — the only collectives are
+    that one-scalar reduction per Newton iteration and the ``pmin`` of the
+    convergence flag.
 
     ``par`` fixes which leaves are swept: ``(K,)`` leaves shard over the
-    mesh, scalars replicate (any non-table parameter, as in
-    ``engine='fused'``). Returns ``fn(carry, par, fyear) -> (carry,
+    mesh, scalars replicate. Returns ``fn(carry, par, fyear) -> (carry,
     Seasonal, converged)`` with carry leaves ``(K, nx)``, ``K`` divisible
     by the mesh size.
     """
     from jax import shard_map
 
     from ..models.base import get_model
-    from ..ops import pallas_year as py
-    from ..ops.pallas_year import (
-        default_interpret, pallas_classic_year, pallas_miz_year,
-    )
+    from ..ops import year as yr
+    from ..solutions import Seasonal
 
     if cfg is None:
         cfg = default_step_config(dtype_name)
     axis = mesh.axis_names[0]
-    interp = default_interpret()
+    cfg = dataclasses.replace(cfg, batch_axis=axis)
     is_miz = model == "MIZ"
-    kern = pallas_miz_year if is_miz else pallas_classic_year
-    carry_keys = py.CARRY_KEYS if is_miz else py.C_CARRY_KEYS
+    year_fn = yr.miz_year if is_miz else yr.classic_year
+    carry_keys = yr.CARRY_KEYS if is_miz else yr.C_CARRY_KEYS
 
     def local_step(carry, par, fyear):
-        carry, seasonal, conv, _ = kern(
-            carry, par, fyear, st, cfg, block_k=block_k, interpret=interp
-        )
+        carry, seasonal, conv, _ = year_fn(carry, par, fyear, st, cfg)
         if conv is None:
             conv = jnp.ones(())
         return carry, seasonal, jax.lax.pmin(conv, axis)
@@ -188,8 +186,6 @@ def shard_map_fused_year_fn(st, mesh: Mesh, par: Collection,
     seasonal_specs = Collection(
         {k: spec_b for k in get_model(model).solution_vars}
     )
-    from ..solutions import Seasonal
-
     smapped = shard_map(
         local_step,
         mesh=mesh,
@@ -199,7 +195,7 @@ def shard_map_fused_year_fn(st, mesh: Mesh, par: Collection,
             Seasonal(seasonal_specs, seasonal_specs, seasonal_specs),
             P(),
         ),
-        # the kernel's out_shape carries no varying-mesh-axes annotation;
+        # the year loop seeds its accumulators with unvarying zeros;
         # per-shard independence is what this wrapper establishes
         check_vma=False,
     )

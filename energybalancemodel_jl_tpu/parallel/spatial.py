@@ -273,7 +273,7 @@ def spatial_integrate(
 
     varnames = list(spec.solution_vars)
     # one bulk device->host fetch (see integrate.py: per-leaf np.asarray
-    # pays a round-trip per array on remote TPUs)
+    # pays a round-trip per array)
     raw_chunks, winter_acc, summer_acc, avg_acc = jax.device_get(
         (raw_chunks, winter_acc, summer_acc, avg_acc)
     )

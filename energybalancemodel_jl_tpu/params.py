@@ -3,7 +3,7 @@
 
 Parameters are plain ``Collection`` dot-dicts of float64 scalars — a pytree,
 so a batched Collection (arrays of shape ``(K,)``) vmaps directly into
-on-chip ensembles.
+device ensembles.
 """
 from __future__ import annotations
 

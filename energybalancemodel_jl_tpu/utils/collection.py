@@ -1,4 +1,4 @@
-"""Dot-access keyed collections (TPU-native rebuild of the reference's
+"""Dot-access keyed collections (rebuild of the reference's
 ``Collection{V}``, /root/reference/src/infrastructure.jl:39-68).
 
 The reference wraps ``Dict{Symbol,V}`` to give dot-syntax access; here a

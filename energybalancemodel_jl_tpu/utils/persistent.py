@@ -6,7 +6,7 @@ Rebuild of the reference's ``@persistent`` macro
 diffusion-operator cache, classic statics, and the MIZ warm start all use
 it).
 
-In the TPU-native design those three uses map onto different mechanisms:
+In this design those three uses map onto different mechanisms:
 
 - operator/statics caches -> ``functools.lru_cache`` over hashable configs
   (:func:`..integrate.make_year_fn`) and traced statics inside jit;

@@ -5,7 +5,7 @@ Identifies the OLR constant ``A`` of the classic model from a synthetic
 this framework's calibration API (``ebm.calibrate``):
 
 1. a coarse :func:`~energybalancemodel_jl_tpu.parallel.sweep` scan locates
-   the misfit basin (thousands of candidates per second on TPU — and the
+   the misfit basin (thousands of candidates in one ensemble — and the
    only trustworthy tool when the landscape is jagged, as the MIZ model's
    ice-edge jumps make it);
 2. ``calibrate`` polishes inside the basin by gradient descent through the
@@ -21,8 +21,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 
 jax.config.update("jax_enable_x64", True)
-# float64 calibration is a CPU workflow (TPU f64 is emulated); set BEFORE
-# any backend query — the env var alone can be overridden by site config
+# this example runs float64 calibration on the CPU; set BEFORE any
+# backend query — the env var alone can be overridden by site config
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402

@@ -6,8 +6,8 @@ and reading states off the trajectory (plot_seasonal workflows,
 directly: equilibrate at a forcing level, then WARM-START the next level
 from the converged state — the warm/cold branch is followed (and its fold
 located) without simulating the ramp at all. Each equilibration runs on
-device (`lax.while_loop` over the year map, dispatched in watchdog-safe
-chunks; on TPU the year map is the fused Pallas kernel).
+device (`lax.while_loop` over the year map, dispatched in bounded
+chunks).
 
 Run: python examples/equilibrium_continuation.py
 """
@@ -25,7 +25,7 @@ def main(fast=False):
     st = ebm.SpaceTime.sin(16, 150, 1) if fast else ebm.SpaceTime.sin(60, 500, 1)
     par = ebm.default_parameters("MIZ")
 
-    # tol 1e-2: in float32 (the TPU default) the adaptive Newton solve
+    # tol 1e-2: in float32 (the throughput default) the adaptive Newton solve
     # leaves O(1e-3) year-over-year noise in the annual means — a tighter
     # tol chases solver noise, not physics (use float64 for tighter
     # equilibria)

@@ -10,10 +10,8 @@ high resolution at a sane step count — in the reference package too (the
 envelope is pinned by tests/test_highres.py).
 
 What this demonstrates:
-- ``engine='auto'`` at high resolution: the fused whole-year kernel fits
-  through nx=2048 (f32, TPU); beyond that the VMEM insolation-table
-  predicate (``fused_unfit``) routes to the XLA scan engine — same API,
-  same trajectory semantics.
+- ``engine='auto'`` at high resolution: the same engines as at the
+  canonical grid — no size predicate, no fallback.
 - per-year ``checkpoint=`` snapshots: re-invoking the identical run
   resumes from the checkpoint (here: the completed state — no recompute)
   instead of starting over; a killed run resumes mid-trajectory the same

@@ -40,9 +40,8 @@ def main(outdir=".", fast=False):
     fig = ebm.plot_seasonal(sols)
     ebm.save(fig, os.path.join(outdir, "hysteresis.png"), dpi=120)
 
-    # bifurcation across diffusivity: one on-chip ensemble. engine='auto'
-    # picks the fused whole-year kernel on TPU; float32 is plenty for the
-    # hysteresis statistics.
+    # bifurcation across diffusivity: one device ensemble; float32 is
+    # plenty for the hysteresis statistics.
     Ds = np.linspace(0.45, 0.75, 4 if fast else 16)
     ens = sweep("MIZ", st, ramp, par, {"D": Ds}, ebm.zeros_init(st),
                 dtype="float32")

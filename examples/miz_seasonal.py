@@ -20,7 +20,7 @@ import energybalancemodel_jl_tpu as ebm  # noqa: E402
 
 def main(outdir=".", fast=False):
     # fast=True: CI-sized config (seconds on CPU) — same workflow, smaller
-    # grid/horizon; the canonical 180x2000x30 run needs TPU-class wall time
+    # grid/horizon; the canonical 180x2000x30 run wants an accelerator
     st = (ebm.SpaceTime.sin(40, 200, 3) if fast
           else ebm.SpaceTime.sin(180, 2000, 30))
     forcing = ebm.Forcing(0.0)

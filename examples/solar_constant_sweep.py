@@ -4,10 +4,9 @@ Classic EBM theory (Budyko/Sellers) predicts bistability in the solar
 constant: below a critical S0 the ice-albedo feedback runs away into a
 snowball state. In the reference this sweep would be a sequential loop of
 ``integrate`` calls with edited parameter dicts; here the whole S0 range
-runs as ONE on-chip ensemble through the fused whole-year kernel — the
-transposed ('xk') layout rebuilds the separable insolation per member, so
-even the table-shaping parameters (S0, S1, S2, a0, a2) sweep at full fused
-throughput (see BENCH_NOTES.md).
+runs as ONE device ensemble through the whole-year engine, which rebuilds
+the separable insolation per member, so even the table-shaping
+parameters (S0, S1, S2, a0, a2) sweep in one program.
 
     python examples/solar_constant_sweep.py [outdir]
 """
@@ -27,8 +26,8 @@ from energybalancemodel_jl_tpu.utils.numerics import np_hemispheric_mean  # noqa
 
 
 def main(outdir=".", fast=False):
-    # fast=True: CI-sized grid/members on the default engine (the fused
-    # Pallas kernel is a TPU path; engine='auto' picks the right one)
+    # fast=True: CI-sized grid/members on the default engine
+    # (engine='auto' picks the right one)
     spinup = 4 if fast else 30
     st = (ebm.SpaceTime.sin(24, 200, spinup) if fast
           else ebm.SpaceTime.sin(180, 2000, spinup))

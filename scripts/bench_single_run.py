@@ -1,6 +1,6 @@
 """Measure the canonical single 30-year MIZ run (the reference's own headline
 workload: 511.24 steps/s, 1:57 min — /root/reference/src/EnergyBalanceModel.jl:59-61)
-across engines and dispatch chunkings on the attached TPU.
+across engines and dispatch chunkings on the attached GPU.
 
 Usage: python scripts/bench_single_run.py [years]
 """
@@ -8,16 +8,15 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
 import numpy as np
-import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import energybalancemodel_jl_tpu as ebm  # noqa: E402
+from energybalancemodel_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
-import energybalancemodel_jl_tpu as ebm
+enable_compile_cache()
 
 years = int(sys.argv[1]) if len(sys.argv) > 1 else 30
 st = ebm.SpaceTime.sin(180, 2000, years)

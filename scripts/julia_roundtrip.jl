@@ -1,5 +1,5 @@
 # CI-able JLD2 round-trip harness between the reference Julia package and
-# the TPU-native framework (promoted from docs/julia_interop.jl, which keeps
+# the JAX framework (promoted from docs/julia_interop.jl, which keeps
 # the plain-HDF5 loader documentation).
 #
 # The build image has no Julia, so this runs in any environment that has

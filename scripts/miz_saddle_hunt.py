@@ -21,12 +21,12 @@ This script tests exactly that frontier:
            `unstable_branch` is classic-only in practice; see
            examples/miz_hysteresis.py and tests/test_miz_bistability.py.)
 
-Run on TPU (fused engines pick up automatically):
-    PYTHONPATH=/root/repo:$PYTHONPATH python scripts/miz_saddle_hunt.py
+Run on the GPU:
+    python scripts/miz_saddle_hunt.py
 CPU smoke:  python scripts/miz_saddle_hunt.py --fast
 
 Writes the sweep artifact to scripts/miz_saddle_hunt.json; the pinned
-conclusions live in tests/test_miz_bistability.py and BENCH_NOTES.md.
+conclusions live in tests/test_miz_bistability.py.
 """
 import argparse
 import json
@@ -37,11 +37,11 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
 
 import energybalancemodel_jl_tpu as ebm  # noqa: E402
+from energybalancemodel_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
 
 def hysteresis_scan(st, D_vals, F_path, tol, max_years, dtype):
@@ -103,6 +103,7 @@ def saddle_at(st, D, F, tol, max_years, dtype, fast):
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true",
                     help="CPU smoke sizes (small grid, short path)")

@@ -1,8 +1,8 @@
 """Weighted ALU-op accounting for the fused model steps (roofline input).
 
-Reproduces the BENCH_NOTES "Roofline" arithmetic as a committed,
-re-runnable script: trace one model step (the SAME ``models/*.py step()``
-the fused whole-year kernels call), walk the jaxpr, and weight the
+A committed, re-runnable operation count: trace one model step (the SAME
+``models/*.py step()`` every year engine calls), walk the jaxpr, and
+weight the
 ALU-visible primitives:
 
     add/mul/sub/cmp/select/min/max/and/or/neg/abs = 1
@@ -12,8 +12,9 @@ ALU-visible primitives:
 
 ``lax.while_loop`` bodies (the MIZ Newton solve) are counted separately
 and multiplied by the EXECUTED iteration count — 6 at the canonical
-config, pinned by the bitwise cap-at-6 measurement (BENCH_NOTES). The
-``(K, nx)``-normalized totals feed the ops/s-vs-VPU-peak statement.
+config (a fixed cap of 6 reproduced the adaptive year bitwise). The
+``(K, nx)``-normalized totals are machine-independent; ``--miz-yrday``
+turns a measured rate into operations per second.
 
 Usage::
 
@@ -91,9 +92,9 @@ def _sub_jaxprs(eqn):
     return []
 
 
-# movement primitives that lower to real lane/sublane shifts or copies on
-# TPU (not free relabeling like reshape/convert): counted separately —
-# they occupy the vector unit without being "ALU work", and for the
+# movement primitives that lower to real shifts or copies (not free
+# relabeling like reshape/convert): counted separately — they occupy
+# the vector units without being "ALU work", and for the
 # PCR-dominated classic kernel they are a material fraction of the issue
 # stream (each jnp.roll in a PCR round is a concatenate of two slices)
 SHIFTY = {"concatenate", "slice", "dynamic_slice", "dynamic_update_slice",
@@ -204,8 +205,6 @@ def report(name, fn, carry, K, nx, nt, newton_iters, yrday):
         ops_s = total / cell * cellsteps_s
         print(f"  at {yrday:.3g} model-yr/day: {cellsteps_s:.3g} cell-steps/s"
               f" -> {ops_s:.3g} weighted ops/s")
-        print(f"  vs v5e VPU ~6.1e12 simple-op/s: {ops_s / 6.1e12:.2f}x; "
-              f"vs 12.3e12 all-FMA: {ops_s / 12.3e12:.2f}x")
     print(flush=True)
     return total / cell
 
@@ -217,7 +216,7 @@ def main():
     ap.add_argument("--nt", type=int, default=2000)
     ap.add_argument("--newton-iters", type=int, default=6,
                     help="executed Newton iterations (6 = the bitwise-"
-                         "pinned canonical count, BENCH_NOTES)")
+                         "pinned canonical count)")
     ap.add_argument("--miz-yrday", type=float, default=None,
                     help="measured MIZ model-yr/day for the ops/s statement")
     ap.add_argument("--classic-yrday", type=float, default=None)

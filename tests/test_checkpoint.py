@@ -192,6 +192,7 @@ class TestEnsembleCheckpoint:
     def run(self, dur, **kw):
         from energybalancemodel_jl_tpu.parallel.ensemble import ensemble_integrate
 
+        kw.setdefault("engine", "batched")  # the key test_resume_is_bit_exact builds
         a = self.ens_kwargs(dur)
         return ensemble_integrate(
             "MIZ", a["st"], a["forcing"], a["par"], a["init"],

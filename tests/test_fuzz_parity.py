@@ -104,7 +104,7 @@ def test_classic_random_config_matches_oracle(seed):
 
 @pytest.mark.parametrize("seed", [11, 22, 33])
 def test_equilibrate_engine_parity_random_config(seed):
-    """Fused-kernel vs XLA-graph equilibration engines across random
+    """Whole-year vs per-year equilibration engines across random
     configs (grid size, intra-year resolution, ensemble size, forcing
     offsets): tol=0 pins the year count so both engines simulate the same
     fixed horizon; f32 agreement at the Newton-tolerance/layout level."""

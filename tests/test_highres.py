@@ -3,12 +3,9 @@
 The north-star BASELINE config[4] is "high-resolution grid with transient
 CO2 forcing ramp and checkpoint I/O". Measured facts this module pins:
 
-- The fused whole-year kernels hold NO insolation table (both layouts
-  rebuild the separable insolation in-kernel, round 3), so the fit
-  boundary is the per-block VMEM working set: single runs genuinely FIT
-  through nx ~ 15k (MIZ) / ~30k (classic) at ANY nt, wide ensembles cap
-  at nx ~ 2-4k, and beyond those ``engine='auto'`` must route to the XLA
-  fallback (``fused_unfit``, ops/pallas_year.py).
+- The whole-year engine (ops/year.py) holds NO insolation table (it
+  rebuilds the separable insolation each step), so it runs at high nx
+  and nt like the per-year scan engine does.
 - MIZ inherits the reference's EXPLICIT Tb diffusion substep
   (/root/reference/src/miz.jl:150-162), whose Nyquist (checkerboard)
   stability requires nt to scale like nx**2 — the canonical nx=180/nt=2000
@@ -105,44 +102,14 @@ class TestRampOracle:
                                                abs=1e-12)
 
 
-class TestFusedKernelReach:
-    """Where the fused whole-year kernels fit, and where auto must fall
-    back. Since the 'kx' separable-insolation rebuild no layout holds an
-    (nt, nx) table, so the boundary is the per-block VMEM working set:
-    single runs (8-sublane member block) reach nx ~ 15k (MIZ) / ~30k
-    (classic), wide ensembles (128-row blocks) cap out at nx ~ 2-4k."""
+class TestWholeYearReach:
+    """The whole-year engine at high resolution."""
 
-    def test_single_runs_fit_through_high_nx(self):
-        import jax.numpy as jnp
-
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-        for model in ("MIZ", "Classic"):
-            for nx in (1024, 4096):
-                st = ebm.SpaceTime.sin(nx, 1000, 1)
-                assert fused_unfit(model, st, jnp.float32) is None, (
-                    f"{model} nx={nx} should fit a single run")
-        # high-nt MIZ (the nt ~ nx^2 stability route) no longer pays a
-        # table: a single nx=512/nt=16000 run is fused-launchable
-        st = ebm.SpaceTime.sin(512, 16000, 1)
-        assert fused_unfit("MIZ", st, jnp.float32) is None
-
-    def test_fused_unfit_names_the_reason_for_wide_ensembles(self):
-        import jax.numpy as jnp
-
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-        for model in ("MIZ", "Classic"):
-            st = ebm.SpaceTime.sin(4096, 1000, 1)
-            reason = fused_unfit(model, st, jnp.float32, K=1024)
-            assert reason is not None
-            assert "exceeds" in reason and "VMEM" in reason
-
-    def test_classic_separable_mode_matches_scan_at_nx_4096(self):
-        # nx=4096/nt=1000: the (nt+1, nxp) table (15.7 MB) is over the
-        # 8 MB table budget, so the 'kx' kernel switches to the separable
-        # in-kernel rebuild (interpret mode here). Fused-vs-scan f32
-        # comparisons carry inherent albedo-step-cell divergence (the
-        # TestFusedEngine scale, measured max 0.3 here at ice-edge
-        # cells); the REBUILD itself is isolated bitwise below.
+    def test_classic_whole_year_matches_scan_at_nx_4096(self):
+        # nx=4096/nt=1000: the whole-year engine rebuilds the insolation
+        # each step where the scan engine reads its table. Engine-vs-engine
+        # f32 comparisons carry inherent albedo-step-cell divergence
+        # (measured max 0.3 at ice-edge cells).
         st = ebm.SpaceTime.sin(4096, 1000, 1)
         par = ebm.Collection(ebm.default_parameters("Classic"))
         E0 = np.full(4096, 30.0)
@@ -159,49 +126,6 @@ class TestFusedKernelReach:
         # the field is O(10-100): typical agreement is ~5e-4 relative
         # (measured median |diff| 0.03), only step cells reach 0.3
         assert float(np.median(np.abs(a - b))) < 0.1
-
-    def test_separable_mode_matches_table_mode(self, monkeypatch):
-        # kernel-vs-kernel isolation of the rebuild: force separable mode
-        # at a canonical-size config by zeroing the table budget and
-        # compare against the default table-mode run — same kernel, only
-        # the insolation source differs. ON-CHIP the two are BITWISE
-        # identical (measured; asserted by the tpu_check stage). Here the
-        # kernels run in XLA:CPU interpret mode, where the two jit graphs
-        # may legitimately differ by FMA contraction (~1 ulp seeds,
-        # trajectory-amplified) — so this CPU guard asserts a tolerance
-        # that still catches any wrong rebuild formula (errors would be
-        # O(1)), not bitwiseness (review r3b).
-        import energybalancemodel_jl_tpu.ops.pallas_year as py
-        st = ebm.SpaceTime.sin(40, 200, 1)
-        par = ebm.Collection(ebm.default_parameters("Classic"))
-        E0 = np.full(40, 30.0)
-        init = ebm.Collection(E=E0, Tg=E0 / float(par["cw"]))
-        kw = dict(progress=False, raw_mode="none", dtype="float32",
-                  engine="fused")
-        import jax
-        try:
-            a = np.asarray(ebm.integrate("Classic", st, ebm.Forcing(0.0),
-                                         par, init, **kw).seasonal.avg["E"])
-            monkeypatch.setattr(py, "_KX_TABLE_BUDGET", 0)
-            jax.clear_caches()  # the mode is baked in at trace time
-            b = np.asarray(ebm.integrate("Classic", st, ebm.Forcing(0.0),
-                                         par, init, **kw).seasonal.avg["E"])
-            np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
-        finally:
-            # budget-0 separable traces must never outlive this test: the
-            # jit caches do not key on _KX_TABLE_BUDGET (trace-time mode),
-            # so a failure mid-test would otherwise leak them into later
-            # same-config integrations
-            jax.clear_caches()
-
-    def test_fused_unfit_names_the_reason_at_extreme_nx(self):
-        import jax.numpy as jnp
-
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-        st = ebm.SpaceTime.sin(16384, 1000, 1)
-        assert fused_unfit("MIZ", st, jnp.float32) is not None
-        st = ebm.SpaceTime.sin(32768, 1000, 1)
-        assert fused_unfit("Classic", st, jnp.float32) is not None
 
 
 class TestMIZStabilityEnvelope:
@@ -236,11 +160,7 @@ HIGH_NX, HIGH_NT = 4096, 1000
 
 class TestHighResFallback:
     """The full north-star shape (high-res sin grid, 5-segment ramp,
-    checkpoint I/O) end-to-end at nx=4096 under ``engine='auto'``. On
-    TPU a single run now resolves to the fused 'kx' kernel (separable
-    insolation — no table cap); on CPU (this suite) and for the wide-
-    ensemble/extreme-nx configs the same call runs the XLA engine —
-    same API, same trajectory semantics either way."""
+    checkpoint I/O) end-to-end at nx=4096 under ``engine='auto'``."""
 
     def test_auto_engine_runs_the_high_res_ramp_with_checkpoint(self,
                                                                 tmp_path):

@@ -33,8 +33,11 @@ class TestStorage:
         assert len(sols.ts) == st.dur * st.nt
 
     def test_lastonly_equals_tail_of_full(self):
-        st, s_last = small_run(lastonly=True)
-        _, s_full = small_run(lastonly=False)
+        # one engine for both runs: under engine='auto' the seasonal-only
+        # years of the lastonly run take the whole-year engine, which
+        # agrees with the scan at round-off, not bitwise
+        st, s_last = small_run(lastonly=True, engine="scan")
+        _, s_full = small_run(lastonly=False, engine="scan")
         for k in ("E", "h", "phi"):
             np.testing.assert_array_equal(
                 s_last.raw[k], s_full.raw[k][-st.nt :], err_msg=k

@@ -1,14 +1,15 @@
-"""Fused whole-year Pallas kernel (ops/pallas_year.py) vs the XLA path.
+"""Whole-year engine (ops/year.py) vs the per-year XLA scan engines.
 
-The kernel calls ``models.miz.step`` itself, so per-step semantics are shared
-by construction; what needs testing is (a) the lane/member padding is inert,
-(b) the in-kernel year loop (storage accumulation, snapshot ticks, Newton
-grouping) reproduces the XLA seasonal storage path, (c) the ensemble-engine
-integration. Comparisons are tolerance-based: the kernel and the scan are
+The whole-year loop calls ``models.miz.step`` / ``models.classic.step``
+itself, so per-step semantics are shared by construction; what needs
+testing is (a) the year loop (storage accumulation, snapshot ticks, Newton
+grouping, per-step insolation rebuild) reproduces the scan engines'
+seasonal storage, (b) the noise, OU and crossing options, (c) the drivers'
+integration. Comparisons are tolerance-based in float32: the two are
 different compiled graphs, and the MIZ trajectory amplifies even
-fusion-level rounding (see CLAUDE.md), so with a *fixed* Newton iteration
-count the two paths agree to ~1e-3 absolute over a 200-step year — asserted
-with 10x headroom.
+fusion-level rounding (see CLAUDE.md); with a *fixed* Newton iteration
+count they agree to ~1e-3 absolute over a 200-step year — asserted with
+10x headroom. In float64 they agree to round-off.
 """
 import jax
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ import pytest
 import energybalancemodel_jl_tpu as ebm
 from energybalancemodel_jl_tpu.models import miz
 from energybalancemodel_jl_tpu.models.base import StepConfig, get_model
-from energybalancemodel_jl_tpu.ops.pallas_year import pallas_miz_year
+from energybalancemodel_jl_tpu.ops.year import classic_year, miz_year
 from energybalancemodel_jl_tpu.parallel import ensemble as ens
 from energybalancemodel_jl_tpu.utils.collection import Collection
 
@@ -33,18 +34,18 @@ FIXED_CFG = StepConfig(
 )
 
 
-def small_setup(nx=40, nt=200, k=K):
+def small_setup(nx=40, nt=200, k=K, dtype=DTYPE):
     st = ebm.SpaceTime.sin(nx, nt, 1)
     par = Collection(
-        {k_: jnp.asarray(v, DTYPE) for k_, v in ebm.default_parameters("MIZ").items()}
+        {k_: jnp.asarray(v, dtype) for k_, v in ebm.default_parameters("MIZ").items()}
     )
-    par["D"] = jnp.asarray(np.linspace(0.55, 0.65, k), DTYPE)
+    par["D"] = jnp.asarray(np.linspace(0.55, 0.65, k), dtype)
     spec = get_model("MIZ")
-    carry = spec.init_carry(ebm.zeros_init(st), st, DTYPE)
+    carry = spec.init_carry(ebm.zeros_init(st), st, dtype)
     carry = Collection(
         {k_: jnp.broadcast_to(v, (k,) + v.shape) for k_, v in carry.items()}
     )
-    fyear = jnp.zeros(st.nt, dtype=DTYPE)
+    fyear = jnp.zeros(st.nt, dtype=dtype)
     return st, par, carry, fyear
 
 
@@ -53,51 +54,8 @@ def year_pair():
     st, par, carry, fyear = small_setup()
     run_year = ens._native_year_fn("MIZ", st, FIXED_CFG, DTYPE.name, False, False)
     xla = run_year(carry, ens._augment_batched(par), fyear)
-    fused = pallas_miz_year(carry, par, fyear, st, FIXED_CFG, interpret=True)
+    fused = miz_year(carry, par, fyear, st, FIXED_CFG)
     return xla, fused
-
-
-class TestPadInvariance:
-    def test_step_lane_padding_is_bitwise_inert(self, rng):
-        """Identity-padded lanes decouple exactly: a padded step equals the
-        unpadded step bitwise on the real lanes (the kernel relies on this)."""
-        nx, nxp = 40, 128
-        st = ebm.SpaceTime.sin(nx, 200, 1)
-        par = Collection(
-            {k: jnp.asarray(v, DTYPE) for k, v in ebm.default_parameters("MIZ").items()}
-        )
-        stat = miz.statics(st, par, DTYPE)
-
-        T0 = jnp.asarray(rng.normal(0, 5, (K, nx)), DTYPE)
-        h = jnp.asarray(np.abs(rng.normal(1, 0.5, (K, nx))), DTYPE)
-        Tw = jnp.asarray(rng.normal(0, 3, (K, nx)), DTYPE)
-        phi = jnp.asarray(rng.uniform(0, 1, (K, nx)), DTYPE)
-        carry = Collection(
-            Ei=-jnp.abs(Tw) * 3, Ew=jnp.abs(T0), h=h,
-            D=jnp.full((K, nx), 100.0, DTYPE), phi=phi, T0=T0,
-        )
-        xs = Collection(insol=stat.insol[17], f=jnp.zeros((), DTYPE))
-        c_u, o_u = miz.step(carry, xs, stat, par, FIXED_CFG)
-
-        pad = lambda v: jnp.pad(v, ((0, 0), (0, nxp - nx)))
-        pl_ = lambda v: jnp.pad(v, (0, nxp - nx))
-        stat_p = Collection(
-            insol=None, aw=pl_(stat.aw), glo=pl_(stat.glo), gdi=pl_(stat.gdi),
-            gup=pl_(stat.gup), dt=stat.dt, Tm_pow_m2=stat["Tm_pow_m2"],
-        )
-        c_p, o_p = miz.step(
-            Collection({k: pad(v) for k, v in carry.items()}),
-            Collection(insol=pl_(xs["insol"]), f=xs["f"]),
-            stat_p, par, FIXED_CFG,
-        )
-        for k in c_u:
-            np.testing.assert_array_equal(
-                np.asarray(c_u[k]), np.asarray(c_p[k])[:, :nx], err_msg=k
-            )
-        for k in ("E", "T", "n"):
-            np.testing.assert_array_equal(
-                np.asarray(o_u[k]), np.asarray(o_p[k])[:, :nx], err_msg=k
-            )
 
 
 class TestFusedYear:
@@ -128,47 +86,25 @@ class TestFusedYear:
         assert float(np.asarray(conv_x)) == 0.0
         assert float(np.asarray(conv_p)) == 0.0
 
-    def test_blocking_invariance(self):
-        """Members are independent: splitting the batch into blocks must not
-        change results (fixed iterations make grouping irrelevant)."""
-        st, par, carry, fyear = small_setup(k=24)
-        one = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                              block_k=24, interpret=True)
-        many = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                               block_k=8, interpret=True)
-        for k in one[0]:
-            np.testing.assert_allclose(
-                np.asarray(one[0][k]), np.asarray(many[0][k]), atol=1e-4,
-                err_msg=k,
-            )
-        for k in one[1].avg:
-            np.testing.assert_allclose(
-                np.nan_to_num(np.asarray(one[1].avg[k])),
-                np.nan_to_num(np.asarray(many[1].avg[k])),
-                atol=1e-4, err_msg=k,
-            )
-
     def test_scalar_D_broadcasts(self):
         st, par, carry, fyear = small_setup()
         par = Collection(par)
         par["D"] = jnp.asarray(0.6, DTYPE)
-        c, seas, conv, _ = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                                           interpret=True)
+        c, seas, conv, _ = miz_year(carry, par, fyear, st, FIXED_CFG)
         assert c["Ei"].shape == (K, st.nx)
         # identical members -> identical rows
         e = np.asarray(seas.avg["E"])
         np.testing.assert_array_equal(e, np.broadcast_to(e[:1], e.shape))
 
     def test_sweeps_any_physical_param(self):
-        """Non-table parameters sweep per member inside the kernel — e.g. an
+        """Parameters sweep per member inside the year loop — e.g. an
         OLR-intercept (A) sweep matches the batch-native XLA engine."""
         st, par, carry, fyear = small_setup()
         par = Collection(par)
         par["A"] = jnp.asarray(np.linspace(190, 196, K), DTYPE)
         run_year = ens._native_year_fn("MIZ", st, FIXED_CFG, DTYPE.name, False, False)
         c_x, s_x, _, _ = run_year(carry, ens._augment_batched(par), fyear)
-        c_p, s_p, _, _ = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                                         interpret=True)
+        c_p, s_p, _, _ = miz_year(carry, par, fyear, st, FIXED_CFG)
         # members differ (the sweep took effect) ...
         e = np.asarray(s_p.avg["E"])
         assert not np.allclose(e[0], e[-1])
@@ -180,44 +116,37 @@ class TestFusedYear:
                 atol=0.05, err_msg=key,
             )
 
-    def test_kx_rejects_swept_table_params(self):
-        st, par, carry, fyear = small_setup()
-        par = Collection(par)
-        par["S0"] = jnp.asarray(np.linspace(415, 425, K), DTYPE)
-        with pytest.raises(ValueError, match="scalar parameter 'S0'"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG, interpret=True,
-                            layout="kx")
-
-    def test_xk_sweeps_table_params(self):
-        """The transposed layout rebuilds the separable insolation from
-        per-member rows, so S0/S1/S2/a0/a2 sweep like any parameter (the
-        default layout resolves to 'xk' when they are swept). Each swept
+    def test_sweeps_table_params(self):
+        """The year loop rebuilds the separable insolation from per-member
+        values, so S0/S1/S2/a0/a2 sweep like any parameter. Each swept
         member must equal a uniform-ensemble run at its parameter value."""
-        st, par, carry, fyear = small_setup()
+        # float64: a swept leaf builds (K, nx) insolation where a shared
+        # one broadcasts a row, so the two graphs fuse differently; in
+        # float64 that difference stays at round-off
+        f64 = jnp.dtype("float64")
+        st, par, carry, fyear = small_setup(dtype=f64)
         par = Collection(par)
-        par["D"] = jnp.asarray(0.6, DTYPE)
-        sweep = np.linspace(415, 425, K).astype(np.float32)
+        par["D"] = jnp.asarray(0.6, f64)
+        sweep = np.linspace(415, 425, K)
         par_s = Collection(par)
-        par_s["S0"] = jnp.asarray(sweep, DTYPE)
-        swept = pallas_miz_year(carry, par_s, fyear, st, FIXED_CFG,
-                                interpret=True)
+        par_s["S0"] = jnp.asarray(sweep, f64)
+        swept = miz_year(carry, par_s, fyear, st, FIXED_CFG)
         for i in (0, K - 1):
             par_i = Collection(par)
-            par_i["S0"] = jnp.asarray(sweep[i], DTYPE)
-            solo = pallas_miz_year(carry, par_i, fyear, st, FIXED_CFG,
-                                   interpret=True, layout="xk")
+            par_i["S0"] = jnp.asarray(sweep[i], f64)
+            solo = miz_year(carry, par_i, fyear, st, FIXED_CFG)
             for k in swept[0]:
                 np.testing.assert_allclose(
                     np.asarray(swept[0][k])[i], np.asarray(solo[0][k])[i],
-                    atol=1e-5, err_msg=f"member {i} {k}",
+                    rtol=1e-10, atol=1e-9, err_msg=f"member {i} {k}",
                 )
 
 
 class TestShardedFused:
     def test_matches_unsharded_on_virtual_mesh(self):
-        """Each chip runs the whole-year kernel on its ensemble shard; pure
-        DP must reproduce the unsharded kernel (fixed iterations make block
-        grouping irrelevant)."""
+        """Each device runs the whole-year engine on its ensemble shard; pure
+        DP must reproduce the unsharded engine (fixed iterations make the
+        Newton grouping irrelevant)."""
         from energybalancemodel_jl_tpu.parallel.sharding import (
             ensemble_mesh, shard_map_fused_year_fn,
         )
@@ -227,9 +156,7 @@ class TestShardedFused:
         mesh = ensemble_mesh(8)
         fn = shard_map_fused_year_fn(st, mesh, par, DTYPE.name, FIXED_CFG)
         c_s, seas_s, conv_s = fn(carry, par, fyear)
-        c_u, seas_u, conv_u, _ = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True
-        )
+        c_u, seas_u, conv_u, _ = miz_year(carry, par, fyear, st, FIXED_CFG)
         assert float(np.asarray(conv_s)) == float(np.asarray(conv_u))
         for key in c_u:
             np.testing.assert_allclose(
@@ -298,9 +225,11 @@ class TestFusedEngine:
                 err_msg=k,
             )
 
-    def test_auto_engine_prefers_fused_on_tpu(self, monkeypatch):
-        """engine='auto' resolves to the fused kernel on TPU backends (and
-        still runs here: the kernel drops to interpret mode off-TPU)."""
+    def test_auto_engine_follows_the_resolver(self, monkeypatch):
+        """engine='auto' takes the shared resolver's choice: a resolver
+        that picks the whole-year engine must reproduce the explicit
+        engine='fused' run bitwise; the thomas solver keeps 'auto' on the
+        per-year engines."""
         st = ebm.SpaceTime.sin(40, 200, 1)
         par = ebm.default_parameters("MIZ")
         par["D"] = np.linspace(0.55, 0.65, K)
@@ -309,12 +238,9 @@ class TestFusedEngine:
             "MIZ", st, ebm.Forcing(0.0), par, ebm.zeros_init(st),
             engine="fused", **kw,
         )
-        import energybalancemodel_jl_tpu.ops.pallas_year as pyear
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        # the backend patch above would also flip default_interpret; keep
-        # the kernels in interpret mode (we are still on CPU)
-        monkeypatch.setattr(pyear, "default_interpret", lambda: True)
+        monkeypatch.setattr(
+            ens, "auto_whole_year",
+            lambda *a, per_year_only=False, **kw_: not per_year_only)
         auto = ens.ensemble_integrate(
             "MIZ", st, ebm.Forcing(0.0), par, ebm.zeros_init(st),
             engine="auto", **kw,
@@ -324,7 +250,8 @@ class TestFusedEngine:
                 np.nan_to_num(explicit.seasonal.avg[k]),
                 np.nan_to_num(auto.seasonal.avg[k]), err_msg=k,
             )
-        # thomas solver is an XLA-engine feature: auto must not pick fused
+        # thomas solver is a per-year-engine feature: auto must not pick
+        # the whole-year engine
         sols = ens.ensemble_integrate(
             "MIZ", st, ebm.Forcing(0.0), par, ebm.zeros_init(st),
             engine="auto", solver="thomas", **kw,
@@ -401,7 +328,7 @@ class TestFusedEngine:
         assert rendered and rendered[-1] == st.dur
 
     def test_table_param_sweep_matches_vmap(self):
-        """engine='fused' sweeps table parameters through the 'xk' kernel
+        """engine='fused' sweeps table parameters in the year loop
         (seasonal storage); members must match the vmap engine."""
         st = ebm.SpaceTime.sin(40, 200, 1)
         par = ebm.default_parameters("MIZ")
@@ -484,25 +411,6 @@ class TestFusedEngine:
         assert sols.seasonal.avg["E"].shape == (K, st.dur, st.nx)
 
 
-def test_vmem_guard_rejects_oversize_working_sets():
-    # since the separable-insolation rebuild (round 3) there is no table
-    # to reject — the guard bounds the per-block working set. A wide
-    # ensemble at nx=1024 (60 planes x 128 rows x 1024 lanes x 4 B =
-    # 31.5 MB) exceeds the 28 MB budget in BOTH layouts; forcing 'kx'
-    # must raise the fit reason rather than fail inside Mosaic. (K=8 at
-    # this nx/nt now correctly FITS — the old 16 MB table is gone.)
-    st = ebm.SpaceTime.sin(1024, 4000, 1)
-    par = ebm.default_parameters("MIZ")
-    spec = get_model("MIZ")
-    carry = spec.init_carry(ebm.zeros_init(st), st, DTYPE)
-    carry = Collection({k: jnp.broadcast_to(v, (128,) + v.shape)
-                        for k, v in carry.items()})
-    with pytest.raises(ValueError, match="VMEM budget"):
-        pallas_miz_year(carry, Collection({k: jnp.asarray(v, DTYPE) for k, v in par.items()}),
-                        jnp.zeros(st.nt, DTYPE), st, FIXED_CFG,
-                        interpret=True, layout="kx")
-
-
 class TestIntegrateFused:
     def test_single_run_matches_scan(self):
         st = ebm.SpaceTime.sin(40, 200, 2)
@@ -531,10 +439,12 @@ class TestIntegrateFused:
         assert np.isfinite(s.seasonal.avg["E"]).all()
         assert s.raw["E"].shape == (st.nt, st.nx)
 
-    def test_auto_engine_on_tpu(self, monkeypatch):
-        """integrate's default engine='auto' resolves to fused on TPU for
-        f32 runs, and to the scan graph when a debug hook needs it."""
-        import energybalancemodel_jl_tpu.ops.pallas_year as pyear
+    def test_auto_engine_follows_the_resolver(self, monkeypatch):
+        """integrate's engine='auto' takes the whole-year engine when the
+        resolver says so, and the scan graph when a debug hook needs it."""
+        import importlib
+
+        integ = importlib.import_module("energybalancemodel_jl_tpu.integrate")
 
         st = ebm.SpaceTime.sin(40, 200, 2)
         par = ebm.default_parameters("MIZ")
@@ -543,8 +453,9 @@ class TestIntegrateFused:
                   raw_mode="none")
         explicit = ebm.integrate("MIZ", st, ebm.Forcing(0.0), par, init,
                                  engine="fused", **kw)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        monkeypatch.setattr(pyear, "default_interpret", lambda: True)
+        monkeypatch.setattr(
+            integ, "auto_whole_year",
+            lambda *a, per_year_only=False, **kw_: not per_year_only)
         auto = ebm.integrate("MIZ", st, ebm.Forcing(0.0), par, init, **kw)
         np.testing.assert_array_equal(
             np.nan_to_num(explicit.seasonal.avg["E"]),
@@ -593,9 +504,8 @@ class TestMeshedFusedEngine:
         assert meshed.seasonal.avg["E"].shape == (16, st.dur, st.nx)
         assert meshed.seasonal.avg["E"].shape == (16, st.dur, st.nx)
         # shard_map groups the adaptive Newton over 2-member shards, so the
-        # interpret-mode graph difference is larger than in the local case;
-        # compare the pre-amplification year only (hardware is bitwise vs
-        # the unchunked meshed run)
+        # graph difference is larger than in the local case; compare the
+        # pre-amplification year only
         for k in ("E", "h", "phi"):
             assert np.isfinite(np.nan_to_num(meshed.seasonal.avg[k])).all(), k
             np.testing.assert_allclose(
@@ -627,9 +537,9 @@ class TestMeshedFusedEngine:
             )
 
 
-def test_padded_members_do_not_poison_convergence():
-    """Zero-padded parameter rows used to make the Newton residual 0/0 and
-    force converged=0.0 for any padded K (including all single runs)."""
+def test_convergence_flag_reports_success():
+    """The adaptive Newton flag reports convergence for single runs and
+    small ensembles (regression: padded members once forced it to 0)."""
     st = ebm.SpaceTime.sin(40, 200, 1)
     par = Collection(
         {k: jnp.asarray(v, DTYPE) for k, v in ebm.default_parameters("MIZ").items()}
@@ -642,24 +552,19 @@ def test_padded_members_do_not_poison_convergence():
         carry = Collection(
             {n: jnp.broadcast_to(v, (k,) + v.shape) for n, v in carry.items()}
         )
-        _, _, conv, _ = pallas_miz_year(
-            carry, par, jnp.zeros(st.nt, DTYPE), st, cfg, interpret=True
-        )
+        _, _, conv, _ = miz_year(carry, par, jnp.zeros(st.nt, DTYPE), st,
+                                 cfg)
         assert float(np.asarray(conv)) == 1.0, k
 
 
 class TestFusedYearsPerDispatch:
-    """Multi-year fused dispatch: a lax.scan feeds the carry through the
-    unchanged Pallas year kernel. On hardware the kernel is an opaque custom
-    call, so chunked results are BITWISE identical to the per-year fused path
-    (verified on a real TPU chip: max |diff| = 0.0 over 4 years, K=8).
-    Interpret mode (these CPU tests) re-traces the kernel body inside the
-    scan, so XLA:CPU fuses the two graphs differently and FMA-level rounding
-    amplifies through the chaotic MIZ dynamics — here we assert the
-    semantic properties that survive that: year-1 closeness (a chunk
-    off-by-one or dropped accumulator would blow past these tolerances by
-    orders of magnitude), chunk-boundary shapes, and checkpoint-key
-    compatibility."""
+    """Multi-year whole-year dispatch: a lax.scan feeds the carry through
+    the same year program. XLA compiles the year inside the scan as a
+    different graph, and FMA-level rounding amplifies through the chaotic
+    MIZ dynamics — here we assert the semantic properties that survive
+    that: year-1 closeness (a chunk off-by-one or dropped accumulator would
+    blow past these tolerances by orders of magnitude), chunk-boundary
+    shapes, and checkpoint-key compatibility."""
 
     def _run(self, model, dur, raw_mode="none", **kw):
         st = ebm.SpaceTime.sin(40, 200 if model == "MIZ" else 1000, dur)
@@ -704,8 +609,8 @@ class TestFusedYearsPerDispatch:
                    for v in b.seasonal.avg.values())
 
     def test_checkpoint_resume_mixes_chunkings(self, tmp_path):
-        """engine='fused' keeps ypd out of the checkpoint key (hardware
-        chunking invariance): a run checkpointed per-year resumes under a
+        """engine='fused' keeps ypd out of the checkpoint key: a run
+        checkpointed per-year resumes under a
         chunked dispatch without a config-mismatch restart, and the two
         resumed continuations agree."""
         import warnings as _warnings
@@ -778,9 +683,8 @@ class TestFusedYearsPerDispatch:
                                         years_per_dispatch=2, **kw)
         assert meshed.seasonal.avg["E"].shape == (16, st.dur, st.nx)
         # shard_map groups the adaptive Newton over 2-member shards, so the
-        # interpret-mode graph difference is larger than in the local case;
-        # compare the pre-amplification year only (hardware is bitwise vs
-        # the unchunked meshed run)
+        # graph difference is larger than in the local case; compare the
+        # pre-amplification year only
         for k in ("E", "h", "phi"):
             assert np.isfinite(np.nan_to_num(meshed.seasonal.avg[k])).all(), k
             np.testing.assert_allclose(
@@ -799,346 +703,12 @@ class TestFusedYearsPerDispatch:
             )
 
 
-class TestMemberSlabs:
-    """Ensembles beyond MAX_LAUNCH_K padded members split into independent
-    launch slabs (XLA's compile-time scoped-VMEM accounting rejects single
-    launches past ~8192 members); the split must be invisible."""
-
-    def test_slab_schedule(self):
-        from energybalancemodel_jl_tpu.ops import pallas_year as py
-
-        assert py._member_slabs(256, 128) == [(0, 256)] or py.MAX_LAUNCH_K < 256
-        old = py.MAX_LAUNCH_K
-        try:
-            py.MAX_LAUNCH_K = 100
-            assert py._member_slabs(256, 64) == [(0, 64), (64, 64), (128, 64), (192, 64)]
-            py.MAX_LAUNCH_K = 128
-            assert py._member_slabs(384, 64) == [(0, 128), (128, 128), (256, 128)]
-        finally:
-            py.MAX_LAUNCH_K = old
-
-    def test_slab_split_matches_single_launch(self, monkeypatch):
-        from energybalancemodel_jl_tpu.ops import pallas_year as py
-
-        st, par, carry, fyear = small_setup(k=24)
-        one = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                              block_k=8, interpret=True)
-        monkeypatch.setattr(py, "MAX_LAUNCH_K", 16)
-        pallas_miz_year.clear_cache()
-        many = py.pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                                  block_k=8, interpret=True)
-        # same block size in both -> identical per-block kernel work; the
-        # tolerance absorbs interpret-mode fusion differences around the
-        # slice/concat (test_blocking_invariance calibration)
-        for k in one[0]:
-            np.testing.assert_allclose(
-                np.asarray(one[0][k]), np.asarray(many[0][k]), atol=1e-4,
-                err_msg=k,
-            )
-        for k in one[1].avg:
-            np.testing.assert_allclose(
-                np.nan_to_num(np.asarray(one[1].avg[k])),
-                np.nan_to_num(np.asarray(many[1].avg[k])), atol=1e-4,
-                err_msg=k,
-            )
-        assert float(np.asarray(many[2])) == float(np.asarray(one[2]))
-        pallas_miz_year.clear_cache()
-
-    def test_classic_slab_split_matches(self, monkeypatch):
-        from energybalancemodel_jl_tpu.ops import pallas_year as py
-        from energybalancemodel_jl_tpu.ops.pallas_year import pallas_classic_year
-
-        st = ebm.SpaceTime.sin(40, 1000, 1)
-        par = Collection({k: jnp.asarray(v, DTYPE)
-                          for k, v in ebm.default_parameters("Classic").items()})
-        par["D"] = jnp.asarray(np.linspace(0.55, 0.65, 24), DTYPE)
-        spec = get_model("Classic")
-        carry = spec.init_carry(
-            Collection(E=np.zeros(st.nx), Tg=np.zeros(st.nx)), st, DTYPE
-        )
-        carry = Collection(
-            {k: jnp.broadcast_to(v, (24,) + v.shape) for k, v in carry.items()}
-        )
-        fyear = jnp.zeros(st.nt, dtype=DTYPE)
-        cfg = StepConfig(solver="pcr")
-        one = pallas_classic_year(carry, par, fyear, st, cfg,
-                                  block_k=8, interpret=True)
-        monkeypatch.setattr(py, "MAX_LAUNCH_K", 16)
-        pallas_classic_year.clear_cache()
-        many = pallas_classic_year(carry, par, fyear, st, cfg,
-                                   block_k=8, interpret=True)
-        for k in one[0]:
-            np.testing.assert_allclose(
-                np.asarray(one[0][k]), np.asarray(many[0][k]), atol=1e-4,
-                err_msg=k,
-            )
-        pallas_classic_year.clear_cache()
-
-
-class TestTransposedLayout:
-    """layout='xk' (grid on sublanes, members on lanes) vs layout='kx'."""
-
-    def test_miz_xk_matches_kx(self):
-        st, par, carry, fyear = small_setup()
-        kx = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                             interpret=True, layout="kx")
-        xk = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                             interpret=True, layout="xk")
-        # the layouts differ in PCR pad width (lane vs sublane rounding), and
-        # the f32 trajectory amplifies that at the ice edge — same tolerance
-        # as the kernel-vs-XLA comparison above
-        for k in kx[0]:
-            np.testing.assert_allclose(
-                np.asarray(kx[0][k]), np.asarray(xk[0][k]), atol=0.5,
-                err_msg=k,
-            )
-        for name in ("winter", "summer", "avg"):
-            ck, cx = getattr(kx[1], name), getattr(xk[1], name)
-            for k in ck:
-                a, b = np.asarray(ck[k]), np.asarray(cx[k])
-                np.testing.assert_array_equal(
-                    np.isnan(a), np.isnan(b), err_msg=f"{name}.{k} NaN pattern"
-                )
-                np.testing.assert_allclose(
-                    np.nan_to_num(a), np.nan_to_num(b), atol=0.05,
-                    err_msg=f"{name}.{k}",
-                )
-
-    def test_miz_xk_adaptive_agrees(self):
-        """Default adaptive-Newton config: the layouts group convergence
-        identically (same 128-member blocks), so they agree to solver noise."""
-        st, par, carry, fyear = small_setup()
-        cfg = StepConfig(solver="pcr", newton_abstol=0.5, newton_reltol=1e-4,
-                         newton_max_step=50.0)
-        kx = pallas_miz_year(carry, par, fyear, st, cfg,
-                             interpret=True, layout="kx")
-        xk = pallas_miz_year(carry, par, fyear, st, cfg,
-                             interpret=True, layout="xk")
-        # adaptive iteration counts differ between layouts (the convergence
-        # max includes the padded grid region, 88 lanes in 'kx' vs 0 rows in
-        # 'xk' here), and the f32 trajectory amplifies that at a couple of
-        # ice-edge cells — bound the typical field and the outlier count
-        for k in kx[0]:
-            a, b = np.asarray(kx[0][k]), np.asarray(xk[0][k])
-            outliers = np.abs(a - b) > 0.5
-            assert outliers.mean() < 0.02, (
-                f"{k}: {outliers.sum()} elements differ by more than 0.5"
-            )
-        assert float(np.asarray(xk[2])) == 1.0
-
-    def test_classic_xk_is_bitwise(self):
-        """No adaptive loop in the classic kernel: the transposed layout is
-        elementwise the same arithmetic (separable S columns are built with
-        the table's exact op order; PCR's extra padded sweeps are exact
-        no-ops), so results must be bitwise identical."""
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            pallas_classic_year,
-        )
-
-        st = ebm.SpaceTime.sin(40, 1000, 1)
-        par = ebm.Collection(ebm.default_parameters("Classic"))
-        par["D"] = jnp.asarray(np.linspace(0.55, 0.65, K), DTYPE)
-        cw = float(np.asarray(par["cw"]))
-        E0 = np.tile(np.linspace(5.0, -5.0, st.nx), (K, 1))
-        carry = Collection(
-            E=jnp.asarray(E0, DTYPE), Tg=jnp.asarray(E0 / cw, DTYPE)
-        )
-        fyear = jnp.zeros(st.nt, DTYPE)
-        kx = pallas_classic_year(carry, par, fyear, st, FIXED_CFG,
-                                 interpret=True, layout="kx")
-        xk = pallas_classic_year(carry, par, fyear, st, FIXED_CFG,
-                                 interpret=True, layout="xk")
-        for k in kx[0]:
-            np.testing.assert_array_equal(
-                np.asarray(kx[0][k]), np.asarray(xk[0][k]), err_msg=k
-            )
-        for name in ("winter", "summer", "avg"):
-            ck, cx = getattr(kx[1], name), getattr(xk[1], name)
-            for k in ck:
-                np.testing.assert_array_equal(
-                    np.asarray(ck[k]), np.asarray(cx[k]),
-                    err_msg=f"{name}.{k}",
-                )
-
-    def test_xk_scalar_broadcast_and_member_padding(self):
-        # K=8 pads to a 128-lane block; identical members must stay identical
-        st, par, carry, fyear = small_setup()
-        par = Collection(par)
-        par["D"] = jnp.asarray(0.6, DTYPE)
-        c, seas, conv, _ = pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                                           interpret=True, layout="xk")
-        assert c["Ei"].shape == (K, st.nx)
-        e = np.asarray(seas.avg["E"])
-        np.testing.assert_array_equal(e, np.broadcast_to(e[:1], e.shape))
-
-    def test_xk_rejects_non_lane_block(self):
-        st, par, carry, fyear = small_setup()
-        with pytest.raises(ValueError, match="multiple of 128"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            block_k=64, interpret=True, layout="xk")
-
-    def test_xk_vmem_guard(self):
-        st = ebm.SpaceTime.sin(2048, 200, 1)
-        par = ebm.default_parameters("MIZ")
-        spec = get_model("MIZ")
-        carry = spec.init_carry(ebm.zeros_init(st), st, DTYPE)
-        carry = Collection(
-            {k: jnp.broadcast_to(v, (8,) + v.shape) for k, v in carry.items()}
-        )
-        with pytest.raises(ValueError, match="VMEM budget"):
-            pallas_miz_year(
-                carry,
-                Collection({k: jnp.asarray(v, DTYPE) for k, v in par.items()}),
-                jnp.zeros(st.nt, DTYPE), st, FIXED_CFG,
-                interpret=True, layout="xk",
-            )
-
-    def test_rejects_unknown_layout(self):
-        st, par, carry, fyear = small_setup()
-        with pytest.raises(ValueError, match="layout"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            interpret=True, layout="bogus")
-
-
-class TestFusedFitPredicate:
-    """``fused_unfit`` — the single predicate engine='auto' resolvers use to
-    fall back to the XLA engines when no whole-year-kernel layout can launch
-    (advisor finding r1: auto used to raise at high resolution)."""
-
-    def test_canonical_config_fits(self):
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-
-        st = ebm.SpaceTime.sin(180, 2000, 1)
-        assert fused_unfit("MIZ", st, jnp.float32) is None
-        assert fused_unfit("Classic", st, jnp.float32) is None
-
-    def test_fit_scales_with_member_count(self):
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-
-        # since the 'kx' separable-insolation rebuild (round 3) no layout
-        # holds an (nt, nx) table, so nt never matters and the 'kx' bound
-        # scales with the MEMBER block: nx=1024/nt=4000 f32 fits a single
-        # run in 'kx' (60 planes x 8 sublanes x 1024 lanes = 2 MB) while a
-        # wide MIZ ensemble (Kt=128 -> 31.5 MB) fits no layout ('xk' is
-        # 31.5 MB too); the classic working set is half and fits both ways
-        st = ebm.SpaceTime.sin(1024, 4000, 1)
-        assert fused_unfit("MIZ", st, jnp.float32) is None          # K=1
-        assert fused_unfit("MIZ", st, jnp.float32, K=1024) is not None
-        assert fused_unfit("Classic", st, jnp.float32) is None
-        assert fused_unfit("Classic", st, jnp.float32, K=1024) is None
-
-    def test_table_sweep_requires_xk(self):
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-
-        st = ebm.SpaceTime.sin(1024, 4000, 1)
-        par = Collection(S0=jnp.asarray(np.linspace(410.0, 430.0, 8)))
-        # classic fits via 'xk' even with swept table parameters...
-        assert fused_unfit("Classic", st, jnp.float32, par) is None
-        # ...MIZ cannot (xk working set over budget)
-        assert fused_unfit("MIZ", st, jnp.float32, par) is not None
-
-    def test_single_run_boundaries(self):
-        from energybalancemodel_jl_tpu.ops.pallas_year import fused_unfit
-
-        # K=1 'kx' working-set boundaries (f32, 28 MB budget): MIZ
-        # 60 planes x 8 x nxp x 4 B crosses at nxp > 15288, classic
-        # (30 planes) at nxp > 30576
-        assert fused_unfit("MIZ", ebm.SpaceTime.sin(8192, 1000, 1),
-                           jnp.float32) is None
-        assert fused_unfit("MIZ", ebm.SpaceTime.sin(16384, 1000, 1),
-                           jnp.float32) is not None
-        assert fused_unfit("Classic", ebm.SpaceTime.sin(16384, 1000, 1),
-                           jnp.float32) is None
-        assert fused_unfit("Classic", ebm.SpaceTime.sin(32768, 1000, 1),
-                           jnp.float32) is not None
-
-    def test_auto_resolver_picks_kx_where_xk_is_over_budget(self):
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            XK_PLANES_MIZ, _resolve_layout,
-        )
-
-        # single high-res run: the 'xk' working set (60 x 4096 x 128 x 4 B
-        # = 126 MB) is far over budget, 'kx' (60 x 8 x 4096 x 4 B = 7.9 MB)
-        # fits — the resolver must land on 'kx', whose launch guard accepts
-        assert _resolve_layout(None, 1, 4096, 128, 4,
-                               XK_PLANES_MIZ) == "kx"
-
-    def test_resolver_never_picks_a_layout_its_guard_rejects(self):
-        """An auto-selected layout must pass its own launch guard (review
-        r3b): in a window around MIZ f32 nx~900 / K~129 the tile heuristic
-        preferred 'kx' while only 'xk' fits the VMEM budget, so
-        engine='auto' (whose fused_unfit admitted the config) crashed on
-        the 'kx' guard. Sweep the window for both models."""
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            XK_PLANES_CLASSIC, XK_PLANES_MIZ, _kx_fits, _resolve_layout,
-            _xk_fits,
-        )
-
-        checked = 0
-        for planes, nxs in ((XK_PLANES_MIZ, (896, 904, 952)),
-                            (XK_PLANES_CLASSIC, (1800, 1856, 1908))):
-            for nx in nxs:
-                for K in (64, 121, 129, 160, 225, 256):
-                    xk = _xk_fits(nx, 128, 4, planes)
-                    kx = _kx_fits(nx, K, 128, 4, planes)
-                    if xk is not None and kx is not None:
-                        continue  # fused_unfit rejects: resolver unused
-                    layout = _resolve_layout(None, K, nx, 128, 4, planes)
-                    fit = xk if layout == "xk" else kx
-                    assert fit is None, (nx, K, layout, fit)
-                    checked += 1
-        assert checked  # the window must actually be exercised
-
-    def test_integrate_auto_falls_back_to_scan(self, monkeypatch):
-        """A default integrate() at a resolution the kernels cannot launch
-        must run on the scan engine instead of raising (advisor r1). The TPU
-        branch is forced by faking the backend; 'unfit' is forced by zeroing
-        the VMEM budgets so the config itself can stay tiny."""
-        from energybalancemodel_jl_tpu.ops import pallas_year as py
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        monkeypatch.setattr(py, "_xk_fits", lambda *a, **k: "forced unfit")
-        monkeypatch.setattr(py, "_kx_fits", lambda *a, **k: "forced unfit")
-        st = ebm.SpaceTime.sin(16, 30, 1)
-        sols = ebm.integrate(
-            "MIZ", st, ebm.Forcing(0.0), ebm.default_parameters("MIZ"),
-            ebm.zeros_init(st), progress=False, raw_mode="none",
-            dtype=jnp.float32,
-        )
-        assert sols.seasonal.avg["E"].shape == (1, st.nx)
-
-    def test_ensemble_auto_excludes_float64(self, monkeypatch):
-        """Advisor r1 medium: the x64 parity config must never route to the
-        fused kernel under engine='auto' (Mosaic has no practical f64 path)."""
-        from energybalancemodel_jl_tpu.parallel.ensemble import (
-            ensemble_integrate,
-        )
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-        def boom(*a, **kw):  # any fused-path touch is a wrong engine choice
-            raise AssertionError("auto selected the fused engine for float64")
-
-        from energybalancemodel_jl_tpu.ops import pallas_year as py
-
-        monkeypatch.setattr(py, "pallas_miz_year", boom)
-        st = ebm.SpaceTime.sin(16, 30, 1)
-        par = Collection(ebm.default_parameters("MIZ"))
-        par["D"] = np.linspace(0.55, 0.65, 4)
-        out = ensemble_integrate(
-            "MIZ", st, ebm.Forcing(0.0), par, ebm.zeros_init(st),
-            n_members=4, dtype=jnp.float64, progress=False,
-        )
-        assert out.seasonal.avg["E"].shape == (4, 1, st.nx)
-
-
 class TestInKernelOU:
-    """The round-4 ``noise_ou`` kernel mode: the OU recurrence computed
-    IN-KERNEL from a white-noise table must match feeding the kernel the
-    XLA-precomputed OU path as a plain ``noise`` table (same per-step
-    forcing offsets, so identical trajectories up to the two graphs'
-    contraction-level rounding), and the 4th return value must be the
-    year-end eta row. Both MIZ and classic 'xk' kernels."""
+    """The ``noise_ou`` mode: the OU recurrence computed in the year loop
+    from a white-noise table must match feeding the loop the precomputed
+    OU path as a plain ``noise`` table (same per-step forcing offsets, so
+    identical trajectories up to the two graphs' contraction-level
+    rounding), and the 4th return value must be the year-end eta row."""
 
     def _ou_inputs(self, st, k, seed=3):
         rng = np.random.default_rng(seed)
@@ -1157,13 +727,12 @@ class TestInKernelOU:
     def test_miz_ou_mode_matches_precomputed_table(self):
         st, par, carry, fyear = small_setup(nx=16, nt=48, k=4)
         xi, etas, eta_end, rho, scale, eta0 = self._ou_inputs(st, 4)
-        c_tab, s_tab, conv_tab, none4 = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=etas)
+        c_tab, s_tab, conv_tab, none4 = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise=etas)
         assert none4 is None
-        c_ou, s_ou, conv_ou, eta_ret = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=xi, noise_ou=(rho, scale, eta0))
+        c_ou, s_ou, conv_ou, eta_ret = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise=xi,
+            noise_ou=(rho, scale, eta0))
         assert eta_ret is not None and eta_ret.shape == (4,)
         np.testing.assert_allclose(np.asarray(eta_ret),
                                    np.asarray(eta_end), rtol=1e-5)
@@ -1175,41 +744,25 @@ class TestInKernelOU:
             np.asarray(s_ou.avg["E"]), np.asarray(s_tab.avg["E"]), atol=1e-3)
 
     def test_classic_ou_mode_matches_precomputed_table(self):
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            pallas_classic_year,
-        )
-
         st = ebm.SpaceTime.sin(16, 48, 1)
-        par = Collection(
-            {k_: jnp.asarray(v, DTYPE)
-             for k_, v in ebm.default_parameters("Classic").items()}
-        )
         k = 4
+        par, carry = _classic_setup(st, k)
         par["D"] = jnp.asarray(np.linspace(0.55, 0.65, k), DTYPE)
-        spec = get_model("Classic")
-        E0 = np.full(st.nx, 30.0)
-        init = Collection(E=E0, Tg=E0 / float(par["cw"]))
-        carry = spec.init_carry(init, st, DTYPE)
-        carry = Collection(
-            {k_: jnp.broadcast_to(v, (k,) + v.shape)
-             for k_, v in carry.items()}
-        )
         fyear = jnp.zeros(st.nt, dtype=DTYPE)
         xi, etas, eta_end, rho, scale, eta0 = self._ou_inputs(st, k)
-        c_tab, s_tab, _, _ = pallas_classic_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=etas)
-        c_ou, s_ou, _, eta_ret = pallas_classic_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=xi, noise_ou=(rho, scale, eta0))
+        c_tab, s_tab, _, _ = classic_year(
+            carry, par, fyear, st, FIXED_CFG, noise=etas)
+        c_ou, s_ou, _, eta_ret = classic_year(
+            carry, par, fyear, st, FIXED_CFG, noise=xi,
+            noise_ou=(rho, scale, eta0))
         assert eta_ret is not None and eta_ret.shape == (k,)
         np.testing.assert_allclose(np.asarray(eta_ret),
                                    np.asarray(eta_end), rtol=1e-5)
         # classic at nt=48 sits below its nt~1000 stability floor
         # (dt*M/cw > 1, CLAUDE.md), so the two graphs' FMA-contraction
         # differences amplify along the year — the per-step forcing
-        # equivalence is pinned by the bitwise-tight eta match above;
-        # the trajectory check is a coarse same-dynamics guard
+        # equivalence is pinned by the tight eta match above; the
+        # trajectory check is a coarse same-dynamics guard
         np.testing.assert_allclose(
             np.asarray(c_ou["E"]), np.asarray(c_tab["E"]),
             rtol=1e-3, atol=1e-2)
@@ -1220,20 +773,30 @@ class TestInKernelOU:
     def test_ou_without_table_raises(self):
         st, par, carry, fyear = small_setup(nx=16, nt=48, k=4)
         with pytest.raises(ValueError, match="noise_ou requires"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            interpret=True, layout="xk",
-                            noise_ou=(0.9, 1.0, jnp.zeros((4,), DTYPE)))
+            miz_year(carry, par, fyear, st, FIXED_CFG,
+                     noise_ou=(0.9, 1.0, jnp.zeros((4,), DTYPE)))
+
+
+def _classic_setup(st, k):
+    par = Collection(
+        {k_: jnp.asarray(v, DTYPE)
+         for k_, v in ebm.default_parameters("Classic").items()})
+    spec = get_model("Classic")
+    E0 = np.full(st.nx, 30.0)
+    init = Collection(E=E0, Tg=E0 / float(par["cw"]))
+    carry = spec.init_carry(init, st, DTYPE)
+    carry = Collection(
+        {k_: jnp.broadcast_to(v, (k,) + v.shape) for k_, v in carry.items()})
+    return par, carry
 
 
 class TestInKernelDraws:
-    """The round-5 ``noise_keys`` kernel mode: the kernel GENERATES its
-    white-noise table from per-member keys (ops/prng.py threefry+erfinv
-    replication). Correctness contract: a keys-mode launch must be
-    BITWISE identical to a table-mode launch fed the XLA-side oracle
-    ``prng.normal_table`` of the same keys (any draw-bit difference would
-    diverge the chaotic trajectories). ``ou_assoc`` precomputes the eta
-    path by log-depth scan — engine-parity (not bitwise) vs serial, and
-    exactly deterministic at scale = eta0 = 0."""
+    """The ``noise_keys`` mode: the year program draws its white-noise
+    table from per-member keys. Correctness contract: a keys-mode year must
+    be BITWISE identical to a table-mode year fed ``jax.random.normal`` of
+    the same keys — the scan engine's weather (any draw-bit difference
+    would diverge the chaotic trajectories). ``ou_assoc`` evaluates the eta
+    path by log-depth scan — engine-parity (not bitwise) vs serial."""
 
     def _keys(self, k, seed=7, year=2):
         base = jax.random.PRNGKey(seed)
@@ -1242,20 +805,18 @@ class TestInKernelDraws:
         return jax.vmap(lambda key: jax.random.fold_in(key, year))(keys)
 
     def test_miz_keys_mode_bitwise_vs_oracle_table(self):
-        from energybalancemodel_jl_tpu.ops import prng
-
         st, par, carry, fyear = small_setup(nx=16, nt=48, k=4)
         yk = self._keys(4)
-        table = prng.normal_table(yk, st.nt)
+        table = _oracle_table(yk, st.nt)
         rho = jnp.asarray(0.9, DTYPE)
         scale = jnp.asarray(np.linspace(0.5, 2.0, 4), DTYPE)
         eta0 = jnp.zeros((4,), DTYPE)
-        c_tab, s_tab, _, eta_tab = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=table, noise_ou=(rho, scale, eta0))
-        c_gen, s_gen, _, eta_gen = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise_keys=yk, noise_ou=(rho, scale, eta0))
+        c_tab, s_tab, _, eta_tab = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise=table,
+            noise_ou=(rho, scale, eta0))
+        c_gen, s_gen, _, eta_gen = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise_keys=yk,
+            noise_ou=(rho, scale, eta0))
         for key in c_tab:
             np.testing.assert_array_equal(
                 np.asarray(c_gen[key]), np.asarray(c_tab[key]),
@@ -1265,35 +826,23 @@ class TestInKernelDraws:
         np.testing.assert_array_equal(np.asarray(eta_gen),
                                       np.asarray(eta_tab))
 
-    def test_classic_keys_mode_bitwise_vs_oracle_table(self):
-        from energybalancemodel_jl_tpu.ops import prng
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            pallas_classic_year,
-        )
-
-        st = ebm.SpaceTime.sin(16, 48, 1)
-        par = Collection(
-            {k_: jnp.asarray(v, DTYPE)
-             for k_, v in ebm.default_parameters("Classic").items()})
-        spec = get_model("Classic")
-        E0 = np.full(st.nx, 30.0)
-        init = Collection(E=E0, Tg=E0 / float(par["cw"]))
-        carry = spec.init_carry(init, st, DTYPE)
-        carry = Collection(
-            {k_: jnp.broadcast_to(v, (4,) + v.shape)
-             for k_, v in carry.items()})
+    @pytest.mark.parametrize("nt", [48, 1536])
+    def test_classic_keys_mode_bitwise_vs_oracle_table(self, nt):
+        st = ebm.SpaceTime.sin(8 if nt > 48 else 16, nt, 1)
+        par, carry = _classic_setup(st, 4)
         fyear = jnp.zeros(st.nt, dtype=DTYPE)
         yk = self._keys(4, seed=1)
-        table = prng.normal_table(yk, st.nt)
+        table = _oracle_table(yk, st.nt)
         rho = jnp.asarray(0.9, DTYPE)
         scale = jnp.asarray(1.5, DTYPE)
         eta0 = jnp.zeros((4,), DTYPE)
-        c_tab, s_tab, _, eta_tab = pallas_classic_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=table, noise_ou=(rho, scale, eta0))
-        c_gen, s_gen, _, eta_gen = pallas_classic_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise_keys=yk, noise_ou=(rho, scale, eta0))
+        c_tab, s_tab, _, eta_tab = classic_year(
+            carry, par, fyear, st, FIXED_CFG, noise=table,
+            noise_ou=(rho, scale, eta0))
+        c_gen, s_gen, _, eta_gen = classic_year(
+            carry, par, fyear, st, FIXED_CFG, noise_keys=yk,
+            noise_ou=(rho, scale, eta0))
+        assert np.isfinite(np.asarray(eta_gen)).all()
         for key in c_tab:
             np.testing.assert_array_equal(
                 np.asarray(c_gen[key]), np.asarray(c_tab[key]),
@@ -1301,18 +850,20 @@ class TestInKernelDraws:
         np.testing.assert_array_equal(np.asarray(eta_gen),
                                       np.asarray(eta_tab))
 
-    def test_plain_noise_keys_mode_rejected(self):
-        """keys WITHOUT noise_ou is rejected (round-5 review): padded
-        lanes replicate the last member's keys, so their generated
-        draws would be live white-noise forcing with no zero-padded OU
-        scale to neutralize it — fictitious-lane dynamics would feed
-        the MIZ block-min Newton flag. Plain white-noise offsets take
-        the explicit (zero-padded) noise= table instead."""
+    def test_plain_noise_keys_mode_matches_table(self):
+        """Keys without an OU process are plain white-noise offsets: the
+        same year as the explicit table of those draws, bitwise."""
         st, par, carry, fyear = small_setup(nx=16, nt=48, k=4)
         yk = self._keys(4, seed=5)
-        with pytest.raises(ValueError, match="requires noise_ou"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            interpret=True, layout="xk", noise_keys=yk)
+        c_gen, _, _, eta = miz_year(carry, par, fyear, st, FIXED_CFG,
+                                    noise_keys=yk)
+        c_tab, _, _, _ = miz_year(carry, par, fyear, st, FIXED_CFG,
+                                  noise=_oracle_table(yk, st.nt))
+        assert eta is None
+        for key in c_tab:
+            np.testing.assert_array_equal(
+                np.asarray(c_gen[key]), np.asarray(c_tab[key]),
+                err_msg=key)
 
     def test_assoc_matches_serial_at_roundoff(self):
         st, par, carry, fyear = small_setup(nx=16, nt=48, k=4)
@@ -1320,12 +871,12 @@ class TestInKernelDraws:
         rho = jnp.asarray(0.9, DTYPE)
         scale = jnp.asarray(np.linspace(0.5, 2.0, 4), DTYPE)
         eta0 = jnp.asarray([0.3, -0.2, 0.0, 1.0], DTYPE)
-        c_s, _, _, eta_s = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise_keys=yk, noise_ou=(rho, scale, eta0))
-        c_a, _, _, eta_a = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise_keys=yk, noise_ou=(rho, scale, eta0), ou_assoc=True)
+        c_s, _, _, eta_s = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise_keys=yk,
+            noise_ou=(rho, scale, eta0))
+        c_a, _, _, eta_a = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise_keys=yk,
+            noise_ou=(rho, scale, eta0), ou_assoc=True)
         # the tree-regrouped eta is a ~1 ulp twin of the serial chain
         np.testing.assert_allclose(np.asarray(eta_a), np.asarray(eta_s),
                                    rtol=1e-5, atol=1e-6)
@@ -1335,22 +886,18 @@ class TestInKernelDraws:
                 atol=1e-3, err_msg=key)
 
     def test_assoc_eta_path_matches_xla_scan(self):
-        """The log-depth in-kernel OU path == the XLA serial scan at
-        round-off, pinned directly through the plain-noise equivalence:
-        assoc eta output vs a numpy serial recurrence on oracle draws."""
-        from energybalancemodel_jl_tpu.ops import prng
-
+        """The log-depth OU path == a numpy serial recurrence on the oracle
+        draws, at round-off."""
         st, par, carry, fyear = small_setup(nx=16, nt=48, k=4)
         yk = self._keys(4, seed=9)
-        xi = np.asarray(prng.normal_table(yk, st.nt), np.float64)
+        xi = np.asarray(_oracle_table(yk, st.nt), np.float64)
         rho, eta0 = 0.93, np.array([0.5, -1.0, 0.0, 2.0])
         scale = np.linspace(0.5, 2.0, 4)
         eta = eta0.copy()
         for t_ in range(st.nt):
             eta = rho * eta + scale * xi[t_]
-        _, _, _, eta_a = pallas_miz_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise_keys=yk,
+        _, _, _, eta_a = miz_year(
+            carry, par, fyear, st, FIXED_CFG, noise_keys=yk,
             noise_ou=(jnp.asarray(rho, DTYPE), jnp.asarray(scale, DTYPE),
                       jnp.asarray(eta0, DTYPE)),
             ou_assoc=True)
@@ -1362,56 +909,177 @@ class TestInKernelDraws:
         yk = self._keys(4)
         table = jnp.zeros((st.nt, 4), DTYPE)
         with pytest.raises(ValueError, match="mutually exclusive"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            interpret=True, layout="xk", noise=table,
-                            noise_keys=yk)
-        with pytest.raises(ValueError, match="requires noise_keys"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            interpret=True, layout="xk", noise=table,
-                            noise_ou=(0.9, 1.0, jnp.zeros((4,), DTYPE)),
-                            ou_assoc=True)
+            miz_year(carry, par, fyear, st, FIXED_CFG, noise=table,
+                     noise_keys=yk)
         with pytest.raises(ValueError, match="uint32 key-data"):
-            pallas_miz_year(carry, par, fyear, st, FIXED_CFG,
-                            interpret=True, layout="xk",
-                            noise_keys=jnp.zeros((4, 2), jnp.int32),
-                            noise_ou=(0.9, 1.0, jnp.zeros((4,), DTYPE)))
+            miz_year(carry, par, fyear, st, FIXED_CFG,
+                     noise_keys=jnp.zeros((4, 2), jnp.int32),
+                     noise_ou=(0.9, 1.0, jnp.zeros((4,), DTYPE)))
+        with pytest.raises(ValueError, match=r"shape \(nt, K\)"):
+            miz_year(carry, par, fyear, st, FIXED_CFG,
+                     noise=jnp.zeros((st.nt, 3), DTYPE))
 
-    def test_multi_chunk_generation_fills_every_row(self):
-        """nt above _GEN_CHUNK exercises the chunked fill's tail
-        (regression: a floor-divided chunk count left rows >= 1024
-        uninitialized at the canonical nt=2000)."""
-        from energybalancemodel_jl_tpu.ops import prng
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            _GEN_CHUNK, pallas_classic_year,
-        )
 
-        nt = _GEN_CHUNK + 512
-        st = ebm.SpaceTime.sin(8, nt, 1)
-        par = Collection(
-            {k_: jnp.asarray(v, DTYPE)
-             for k_, v in ebm.default_parameters("Classic").items()})
-        spec = get_model("Classic")
-        E0 = np.full(st.nx, 30.0)
-        init = Collection(E=E0, Tg=E0 / float(par["cw"]))
-        carry = spec.init_carry(init, st, DTYPE)
-        carry = Collection(
-            {k_: jnp.broadcast_to(v, (3,) + v.shape)
-             for k_, v in carry.items()})
-        fyear = jnp.zeros(st.nt, dtype=DTYPE)
-        yk = self._keys(3, seed=2)
-        rho = jnp.asarray(0.9, DTYPE)
-        scale = jnp.asarray(0.5, DTYPE)
-        eta0 = jnp.zeros((3,), DTYPE)
-        c_tab, _, _, eta_tab = pallas_classic_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise=prng.normal_table(yk, nt), noise_ou=(rho, scale, eta0))
-        c_gen, _, _, eta_gen = pallas_classic_year(
-            carry, par, fyear, st, FIXED_CFG, interpret=True, layout="xk",
-            noise_keys=yk, noise_ou=(rho, scale, eta0))
-        assert np.isfinite(np.asarray(eta_gen)).all()
-        np.testing.assert_array_equal(np.asarray(eta_gen),
-                                      np.asarray(eta_tab))
-        for key in c_tab:
-            np.testing.assert_array_equal(
-                np.asarray(c_gen[key]), np.asarray(c_tab[key]),
-                err_msg=key)
+def _oracle_table(keys, nt, dtype=DTYPE):
+    """``(nt, K)`` table of ``jax.random.normal(keys[k], (nt,), dtype)``."""
+    return jax.vmap(lambda k: jax.random.normal(k, (nt,), dtype),
+                    out_axes=1)(keys)
+
+
+class TestFloat64Parity:
+    """In float64 the whole-year engine and the per-year scan engine run
+    the same step arithmetic; they agree to round-off over a year."""
+
+    @pytest.mark.parametrize("model", ["MIZ", "Classic"])
+    def test_whole_year_matches_scan_in_f64(self, model):
+        from energybalancemodel_jl_tpu.integrate import make_year_fn
+        from energybalancemodel_jl_tpu.models.base import default_step_config
+
+        f64 = jnp.float64
+        st = ebm.SpaceTime.sin(24, 200 if model == "MIZ" else 1000, 1)
+        par = Collection({k: jnp.asarray(v, f64)
+                          for k, v in ebm.default_parameters(model).items()})
+        if model == "MIZ":
+            init = ebm.zeros_init(st)
+        else:
+            E0 = np.linspace(20.0, -20.0, st.nx)
+            init = Collection(E=E0, Tg=E0 / float(par["cw"]))
+        cfg = default_step_config("float64")
+        carry = get_model(model).init_carry(init, st, f64)
+        scan = jax.jit(make_year_fn(model, st, cfg, "float64", False))
+        c_s, s_s, _, _ = scan(carry, par, jnp.zeros(st.nt, f64))
+        year = miz_year if model == "MIZ" else classic_year
+        c1 = Collection({k: v[None] for k, v in carry.items()})
+        c_w, s_w, _, _ = year(c1, par, jnp.zeros(st.nt, f64), st, cfg)
+        for k in c_s:
+            np.testing.assert_allclose(np.asarray(c_w[k])[0],
+                                       np.asarray(c_s[k]), rtol=1e-9,
+                                       atol=1e-9, err_msg=k)
+        for k in s_s.avg:
+            np.testing.assert_allclose(
+                np.nan_to_num(np.asarray(s_w.avg[k])[0]),
+                np.nan_to_num(np.asarray(s_s.avg[k])), rtol=1e-9,
+                atol=1e-9, err_msg=k)
+
+
+class TestEngineResolver:
+    """One ``engine='auto'`` policy for the four drivers (engine.py): the
+    whole-year engine for MIZ and Classic unless the run needs a per-year
+    engine feature."""
+
+    def test_policy(self):
+        from energybalancemodel_jl_tpu.engine import auto_whole_year
+
+        assert auto_whole_year("MIZ")
+        assert auto_whole_year("Classic")
+        assert not auto_whole_year("MIZ", per_year_only=True)
+        assert not auto_whole_year("_NoKernel")
+
+    def _run(self, driver, monkeypatch, **extra):
+        """Run ``driver`` with engine='auto' on a tiny Classic config;
+        True when the whole-year engine ran."""
+        import energybalancemodel_jl_tpu.ops.year as yr
+        from energybalancemodel_jl_tpu.stochastic import transitions
+
+        seen = []
+
+        def spy(*a, **kw):
+            seen.append(True)
+            return classic_year(*a, **kw)
+
+        monkeypatch.setattr(yr, "classic_year", spy)
+        st = ebm.SpaceTime.sin(8, 24, 1)
+        par = Collection(ebm.default_parameters("Classic"))
+        init = Collection(E=np.full(st.nx, 10.0), Tg=np.full(st.nx, 0.1))
+        kw = dict(dtype=DTYPE, **extra)
+        if driver == "integrate":
+            ebm.integrate("Classic", st, ebm.Forcing(0.0), par, init,
+                          progress=False, raw_mode="none", **kw)
+        elif driver == "ensemble":
+            par["D"] = np.array([0.5, 0.6])
+            ens.ensemble_integrate("Classic", st, ebm.Forcing(0.0), par,
+                                   init, progress=False, **kw)
+        elif driver == "equilibrate":
+            par["D"] = np.array([0.5, 0.6])
+            ebm.equilibrate("Classic", st, 0.0, par, init, max_years=2,
+                            tol=0.0, **kw)
+        else:
+            r = transitions("Classic", st, 0.0, par, init, init, sigma=0.0,
+                            years=1, K=2, **kw)
+            assert r.engine == ("fused" if seen else "scan")
+        return bool(seen)
+
+    @pytest.mark.parametrize("driver", ["integrate", "ensemble",
+                                        "equilibrate", "transitions"])
+    def test_auto_takes_the_whole_year_engine(self, driver, monkeypatch):
+        assert self._run(driver, monkeypatch)
+
+    @pytest.mark.parametrize("driver,extra", [
+        ("integrate", {"progress_steps": 6}),
+        ("integrate", {"solver": "thomas"}),
+        ("ensemble", {"raw_mode": "all"}),
+        ("ensemble", {"solver": "thomas"})])
+    def test_per_year_features_resolve_to_the_per_year_engine(
+            self, driver, extra, monkeypatch):
+        assert not self._run(driver, monkeypatch, **extra)
+
+    @pytest.mark.parametrize("driver,extra", [
+        ("ensemble", "mesh"), ("equilibrate", "mesh"),
+        ("transitions", "subyear")])
+    def test_whole_year_features_resolve_to_the_whole_year_engine(
+            self, driver, extra, monkeypatch):
+        from jax.sharding import Mesh
+
+        kw = ({"mesh": Mesh(np.array(jax.devices()[:2]), ("members",))}
+              if extra == "mesh" else {"subyear": True})
+        assert self._run(driver, monkeypatch, **kw)
+
+
+class TestRemovedNames:
+    """Solver names whose kernels were removed fail with a clear error."""
+
+    @pytest.mark.parametrize("solver", ["pallas", "pcr_fused"])
+    def test_removed_solver_raises(self, solver):
+        st = ebm.SpaceTime.sin(8, 24, 1)
+        with pytest.raises(ValueError, match="no longer available"):
+            ebm.integrate("MIZ", st, ebm.Forcing(0.0),
+                          ebm.default_parameters("MIZ"), ebm.zeros_init(st),
+                          solver=solver, progress=False)
+
+    def test_removed_solver_raises_in_ensembles(self):
+        st = ebm.SpaceTime.sin(8, 24, 1)
+        par = ebm.default_parameters("MIZ")
+        par["D"] = np.array([0.5, 0.6])
+        with pytest.raises(ValueError, match="no longer available"):
+            ens.ensemble_integrate("MIZ", st, ebm.Forcing(0.0), par,
+                                   ebm.zeros_init(st), solver="pallas",
+                                   progress=False)
+
+    def test_unknown_solver_raises(self):
+        from energybalancemodel_jl_tpu.models.base import default_step_config
+
+        with pytest.raises(ValueError, match="unknown solver"):
+            default_step_config("float32", solver="bogus")
+
+    @pytest.mark.parametrize("kwarg", ["layout", "block_k", "interpret"])
+    def test_removed_year_options_raise(self, kwarg):
+        st, par, carry, fyear = small_setup(nx=8, nt=24, k=2)
+        with pytest.raises(TypeError):
+            miz_year(carry, par, fyear, st, FIXED_CFG, **{kwarg: 1})
+
+
+def test_package_has_no_interpreted_kernels():
+    """Nothing in the package runs a Pallas kernel or the Pallas
+    interpreter, and no code branches on the platform: every engine is
+    compiled XLA."""
+    import pathlib
+
+    root = pathlib.Path(ebm.__file__).parent
+    bad = []
+    for path in sorted(root.rglob("*.py")):
+        text = path.read_text()
+        for needle in ("pallas_call", "interpret=", "default_interpret",
+                       "jax.experimental.pallas", "default_backend()"):
+            if needle in text:
+                bad.append(f"{path.relative_to(root)}: {needle}")
+    assert not bad, bad

@@ -141,23 +141,21 @@ class TestBatchedEngine:
             ensemble_integrate("MIZ", ST, ebm.Forcing(0.0), ebm.Collection(par_b),
                                ebm.zeros_init(ST), engine="batched")
 
-    def test_pallas_solver_runs_and_agrees(self):
-        """The fused Pallas Newton path (interpret mode on CPU) stays close
-        to the PCR path in float32 over a couple of years."""
+    def test_thomas_solver_agrees_with_pcr(self):
+        """The batched engine's sequential Thomas solve stays close to the
+        PCR default in float32 over a year."""
         par_b = batched_parameters(PAR, {"D": [0.55, 0.6, 0.65]})
-        a = ensemble_integrate("MIZ", ST, ebm.Forcing(0.0), ebm.Collection(par_b),
-                               ebm.zeros_init(ST), engine="batched",
-                               dtype="float32", solver="pcr")
-        b = ensemble_integrate("MIZ", ST, ebm.Forcing(0.0), ebm.Collection(par_b),
-                               ebm.zeros_init(ST), engine="batched",
-                               dtype="float32", solver="pallas")
+        a, b = (ensemble_integrate(
+            "MIZ", ST, ebm.Forcing(0.0), ebm.Collection(par_b),
+            ebm.zeros_init(ST), engine="batched", dtype="float32",
+            solver=solver) for solver in ("pcr", "thomas"))
         pa = np.nan_to_num(a.seasonal.avg["phi"])
         pb = np.nan_to_num(b.seasonal.avg["phi"])
         assert np.isfinite(np.nan_to_num(b.seasonal.avg["E"])).all()
         assert abs(pa.mean() - pb.mean()) < 0.05
 
-    def test_pallas_requires_batched(self):
-        with pytest.raises(ValueError, match="engine='batched'"):
+    def test_removed_solver_raises(self):
+        with pytest.raises(ValueError, match="no longer available"):
             ensemble_integrate("MIZ", ST, ebm.Forcing(0.0),
                                ebm.Collection(batched_parameters(PAR, {"S0": [410.0, 420.0]})),
                                ebm.zeros_init(ST), solver="pallas")

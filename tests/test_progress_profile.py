@@ -65,7 +65,9 @@ class TestSubYearProgress:
         st = ebm.SpaceTime.sin(16, 30, 2)
         args = ("MIZ", st, ebm.Forcing(0.0), ebm.default_parameters("MIZ"),
                 ebm.zeros_init(st))
-        base = ebm.integrate(*args, progress=False)
+        # progress_steps runs the per-year scan graph; compare it with the
+        # same graph without ticks
+        base = ebm.integrate(*args, progress=False, engine="scan")
         ticks = []
         real = pm.Progress.update
 

@@ -189,7 +189,8 @@ class TestMesh:
         from jax.sharding import Mesh
 
         st, par, F, a, b = bistable
-        kw = dict(sigma=6.0, tau=0.05, years=3, K=4, seed=5, track=("E",))
+        kw = dict(sigma=6.0, tau=0.05, years=3, K=4, seed=5, track=("E",),
+                  engine="scan")
         r0 = transitions("Classic", st, F, par, a, b, **kw)
         mesh = Mesh(np.array(jax.devices("cpu")[:2]), ("members",))
         r1 = transitions("Classic", st, F, par, a, b, mesh=mesh, **kw)
@@ -305,14 +306,15 @@ class TestYear0Resume:
 class TestPerMemberSigma:
     def test_sigma_vector_zero_member_is_deterministic(self, bistable):
         """sigma=(K,) sweeps noise amplitudes across lockstep members; a
-        zero entry reproduces the deterministic trajectory exactly."""
+        zero entry reproduces the deterministic trajectory exactly (in the
+        scan engine, whose per-member arithmetic does not depend on K)."""
         st, par, F, a, b = bistable
         res = transitions("Classic", st, F, par, a, b,
                           sigma=np.array([0.0, 6.0, 12.0]), tau=0.05,
-                          years=3, seed=2, track=("E",))
+                          years=3, seed=2, track=("E",), engine="scan")
         assert res.areas.shape == (3, 3)
         det = transitions("Classic", st, F, par, a, b, sigma=0.0,
-                          years=3, K=1, seed=2, track=("E",))
+                          years=3, K=1, seed=2, track=("E",), engine="scan")
         np.testing.assert_array_equal(res.tracked["E"][:, 0],
                                       det.tracked["E"][:, 0])
         # noisy members actually differ from the deterministic one
@@ -471,10 +473,9 @@ class TestRamp:
 
 class TestFusedEngine:
     def test_fused_matches_scan_miz(self):
-        """engine='fused' (interpret off-TPU) draws the SAME weather as
-        the scan engine and produces the same areas at cross-graph
-        tolerance (f64: the 'xk' separable insolation rebuild is ~1 ulp
-        off the XLA table on CPU)."""
+        """engine='fused' draws the SAME weather as the scan engine and
+        produces the same areas at cross-graph tolerance (f64: the
+        per-step insolation rebuild is ~1 ulp off the XLA table)."""
         st = ebm.SpaceTime.sin(40, 200, 1)
         par = ebm.Collection(ebm.default_parameters("MIZ"))
         warm = ebm.equilibrate("MIZ", st, 25.0, par, ebm.zeros_init(st),
@@ -493,13 +494,13 @@ class TestFusedEngine:
         np.testing.assert_array_equal(rf.labels, rs.labels)
 
     def test_fused_sigma_zero_matches_deterministic_kernel(self):
-        """sigma=0 through the fused engine equals the deterministic fused
-        year bitwise (the noise table is exactly zero)."""
+        """sigma=0 through the fused engine equals the deterministic
+        whole-year engine bitwise (the OU offsets are exactly zero)."""
         import jax.numpy as jnp
 
         from energybalancemodel_jl_tpu.models.base import (
             default_step_config, get_model)
-        from energybalancemodel_jl_tpu.ops.pallas_year import pallas_miz_year
+        from energybalancemodel_jl_tpu.ops.year import miz_year
         from energybalancemodel_jl_tpu.utils.collection import Collection
 
         st = ebm.SpaceTime.sin(40, 200, 1)
@@ -521,8 +522,7 @@ class TestFusedEngine:
         parj = Collection({k: jnp.asarray(v, dtype) for k, v in par.items()})
         parj["F"] = jnp.zeros((2,), dtype)
         fyear = jnp.full((st.nt,), 5.0, dtype)
-        det = pallas_miz_year(carry, parj, fyear, st, cfg, interpret=True,
-                              layout="xk")
+        det = miz_year(carry, parj, fyear, st, cfg)
         for k in det[0]:
             _np.testing.assert_array_equal(res.state[k],
                                            _np.asarray(det[0][k]))
@@ -571,8 +571,8 @@ class TestFusedEngine:
 
 
 class TestDrawGeneration:
-    """Round-5 in-kernel draw generation (f32 `noise_src='keys'`, the
-    fused default) and the log-depth `ou_impl='assoc'` OU path."""
+    """Keyed draw generation inside the whole-year engine and the
+    log-depth `ou_impl='assoc'` OU path."""
 
     @pytest.fixture(scope="class")
     def setup32(self):
@@ -585,27 +585,24 @@ class TestDrawGeneration:
         assert a.converged and b.converged
         return st, par, F, a, b
 
-    def test_keys_mode_bitwise_vs_table_mode(self, setup32, monkeypatch):
-        """The kernel-generated draws ARE jax.random.normal's: forcing
-        the round-4 XLA-table control via EBM_FUSED_NOISE must reproduce
-        the keys-mode trajectories bitwise (any draw-bit difference
-        would chaotically diverge them)."""
+    def test_keys_mode_draws_the_scan_engines_weather(self, setup32):
+        """The whole-year engine draws its weather from the member keys
+        inside the year program; the scan engine per year. Same weather:
+        the OU state the two carry out of the run agrees to round-off
+        (it does not depend on the model state)."""
         st, par, F, a, b = setup32
-        kw = dict(sigma=4.0, tau=0.05, years=4, K=5, seed=3,
-                  dtype="float32", engine="fused")
-        monkeypatch.setenv("EBM_FUSED_NOISE", "keys")
-        r_key = transitions("Classic", st, F, par, a, b, **kw)
-        monkeypatch.setenv("EBM_FUSED_NOISE", "table")
-        r_tab = transitions("Classic", st, F, par, a, b, **kw)
-        np.testing.assert_array_equal(r_key.areas, r_tab.areas)
-        np.testing.assert_array_equal(r_key.eta, r_tab.eta)
-        for k in r_key.state:
-            np.testing.assert_array_equal(r_key.state[k], r_tab.state[k])
+        kw = dict(sigma=4.0, tau=0.05, years=2, K=5, seed=3,
+                  dtype="float32")
+        r_key = transitions("Classic", st, F, par, a, b, engine="fused", **kw)
+        r_scan = transitions("Classic", st, F, par, a, b, engine="scan",
+                             **kw)
+        np.testing.assert_allclose(r_key.eta, r_scan.eta, rtol=1e-5,
+                                   atol=1e-6)
 
     def test_keys_mode_year0_resume_bit_exact(self, setup32):
-        """The split/continue contract survives in-kernel generation
-        (keys are year-folded per absolute year, same as the scan
-        engine's draws)."""
+        """The split/continue contract survives keyed generation (keys are
+        year-folded per absolute year, same as the scan engine's
+        draws)."""
         st, par, F, a, b = setup32
         kw = dict(sigma=4.0, tau=0.05, K=4, seed=9, dtype="float32",
                   engine="fused")
@@ -639,19 +636,26 @@ class TestDrawGeneration:
                           ou_impl="assoc", **k0)
         np.testing.assert_array_equal(r0s.areas, r0a.areas)
 
-    def test_assoc_requires_fused_and_f32(self, setup32):
+    def test_assoc_requires_fused(self, setup32):
         st, par, F, a, b = setup32
-        with pytest.raises(ValueError, match="fused-kernel mode"):
+        with pytest.raises(ValueError, match="whole-year-engine mode"):
             transitions("Classic", st, F, par, a, b, sigma=1.0, years=2,
                         K=3, engine="scan", ou_impl="assoc")
-        with pytest.raises(ValueError, match="float32"):
-            transitions("Classic", st, F, par, a, b, sigma=1.0, years=2,
-                        K=3, engine="fused", ou_impl="assoc",
-                        dtype="float64")
 
-    def test_f64_fused_falls_back_to_table(self, setup32):
-        """f64 has no bitwise keys pipeline — the fused engine keeps the
-        XLA-table source and still matches the scan engine's weather."""
+    def test_assoc_in_float64_matches_serial(self, setup32):
+        """The log-depth OU path also runs over float64 tables."""
+        st, par, F, a, b = setup32
+        kw = dict(sigma=4.0, tau=0.05, years=2, K=3, seed=1,
+                  dtype="float64", engine="fused")
+        r_ser = transitions("Classic", st, F, par, a, b, **kw)
+        r_as = transitions("Classic", st, F, par, a, b, ou_impl="assoc",
+                           **kw)
+        np.testing.assert_allclose(r_as.eta, r_ser.eta, rtol=1e-10,
+                                   atol=1e-10)
+
+    def test_f64_fused_matches_scan_weather(self, setup32):
+        """In float64 the fused engine draws the scan engine's weather
+        from the same keys and matches its areas."""
         st, par, F, a, b = setup32
         kw = dict(sigma=4.0, tau=0.05, years=2, K=3, seed=1,
                   dtype="float64")
@@ -663,9 +667,9 @@ class TestDrawGeneration:
 
 
 class TestMeshFused:
-    """Round-5 fused+mesh composition (VERDICT r4 #2): the fused engine
-    shard_maps the kernel launches over the member axis — per-member
-    keying makes sharded == unsharded EXACT, in both OU impls."""
+    """Whole-year engine + mesh: the year is shard-mapped over the member
+    axis — per-member keying makes the sharded weather EXACTLY the
+    unsharded weather, in both OU impls."""
 
     def test_sharded_fused_matches_unsharded(self, bistable):
         import jax
@@ -673,15 +677,20 @@ class TestMeshFused:
 
         st, par, F, a, b = bistable
         kw = dict(sigma=6.0, tau=0.05, years=3, K=4, seed=5,
-                  dtype="float32", track=("E",), engine="fused")
+                  dtype="float64", track=("E",), engine="fused")
         r0 = transitions("Classic", st, F, par, a, b, **kw)
         mesh = Mesh(np.array(jax.devices("cpu")[:2]), ("members",))
         r1 = transitions("Classic", st, F, par, a, b, mesh=mesh, **kw)
+        # the weather and the cell-quantized areas are exact; XLA compiles
+        # the year for the shard's member count, so the fields may differ
+        # in the last bits — float64 keeps that at round-off
         np.testing.assert_array_equal(r0.areas, r1.areas)
-        np.testing.assert_array_equal(r0.tracked["E"], r1.tracked["E"])
         np.testing.assert_array_equal(r0.eta, r1.eta)
+        np.testing.assert_allclose(r0.tracked["E"], r1.tracked["E"],
+                                   rtol=1e-10, atol=1e-9)
         for k in r0.state:
-            np.testing.assert_array_equal(r0.state[k], r1.state[k])
+            np.testing.assert_allclose(r0.state[k], r1.state[k],
+                                       rtol=1e-10, atol=1e-9, err_msg=k)
 
     def test_sharded_assoc_and_swept_sigma(self, bistable):
         import jax
@@ -700,10 +709,10 @@ class TestMeshFused:
 
 
 class TestSubyearCrossing:
-    """Round-5 in-kernel first-crossing detection (`subyear=True`):
-    the fused kernel reduces each STEP's instantaneous ice area and
-    records the first step past the reference midpoint — sub-annual
-    transition timing at one (1, K) row per year of HBM."""
+    """First-crossing detection (`subyear=True`): the whole-year engine
+    reduces each STEP's instantaneous ice area and records the first step
+    past the reference midpoint — sub-annual transition timing at one
+    (K,) row per year."""
 
     @pytest.fixture(scope="class")
     def escapes(self):
@@ -760,10 +769,10 @@ class TestSubyearCrossing:
         with pytest.raises(ValueError, match="fused"):
             transitions("Classic", st, 5.5, par, a, a, sigma=1.0,
                         years=2, K=2, engine="scan", subyear=True)
-        with pytest.raises(ValueError, match="float32"):
-            transitions("Classic", st, 5.5, par, a, a, sigma=1.0,
-                        years=2, K=2, engine="fused", subyear=True,
-                        dtype="float64")
+        r64 = transitions("Classic", st, 5.5, par, a, a, sigma=1.0,
+                          years=2, K=2, engine="fused", subyear=True,
+                          dtype="float64")  # crossings run in float64 too
+        assert r64.crossing_step.shape == (2, 2)
         ramp = ebm.Forcing(0.0, 5.0, -5.0, (1, 1), (1.0, -1.0))
         with pytest.raises(ValueError, match="RAMPED"):
             # ref_area0 seeds ramped subyear thresholds only
@@ -780,9 +789,9 @@ class TestSubyearCrossing:
                         dtype="float32", mesh=mesh)
 
     def test_miz_kernel_detector_semantics(self):
-        """The MIZ kernel's crossing path (phi-based instantaneous area
-        + threshold comparison) — previously only the Classic kernel's
-        detector had coverage. Deterministic contract: members on their
+        """The MIZ crossing path (phi-based instantaneous area +
+        threshold comparison) — previously only the Classic detector had
+        coverage. Deterministic contract: members on their
         own attractor never cross (all -1); an ``init=`` override on the
         FAR side is already across at every year start (step 0, the
         documented already-across semantics)."""
@@ -813,7 +822,7 @@ class TestSubyearCrossing:
                                       np.ones(3))
 
     def test_crossing_matches_raw_oracle(self):
-        """The in-kernel per-step area + crossing step vs a numpy
+        """The per-step area + crossing step vs a numpy
         recomputation from the RAW XLA engine under identical weather
         (engine-parity trajectories: the step index matches within a
         small window around the threshold)."""
@@ -823,9 +832,8 @@ class TestSubyearCrossing:
         from energybalancemodel_jl_tpu.integrate import make_year_fn
         from energybalancemodel_jl_tpu.models.base import (
             default_step_config, get_model)
-        from energybalancemodel_jl_tpu.ops import prng
-        from energybalancemodel_jl_tpu.ops.pallas_year import (
-            _trapezoid_weights, pallas_classic_year)
+        from energybalancemodel_jl_tpu.ops.year import (
+            _trapezoid_weights, classic_year)
         from energybalancemodel_jl_tpu.utils.collection import Collection
 
         st = ebm.SpaceTime.sin(8, 200, 1)
@@ -850,12 +858,14 @@ class TestSubyearCrossing:
         eta0 = jnp.zeros((K,), dtype)
         thr = jnp.full((K,), 0.3, dtype)
         sgn = jnp.ones((K,), dtype)
-        *_, cross = pallas_classic_year(
-            carry, par, fyear, st, cfg, interpret=True, layout="xk",
+        *_, cross = classic_year(
+            carry, par, fyear, st, cfg,
             noise_keys=yk, noise_ou=(rho, scale, eta0),
             crossing=(thr, sgn))
         # oracle: raw XLA year under the same weather
-        xi = np.asarray(prng.normal_table(yk, st.nt), np.float64)
+        xi = np.asarray(jax.vmap(
+            lambda k: jax.random.normal(k, (st.nt,), dtype),
+            out_axes=1)(yk), np.float64)
         eta = np.zeros(K)
         etas = np.empty((st.nt, K))
         for t in range(st.nt):
@@ -868,7 +878,7 @@ class TestSubyearCrossing:
             {k: (v[:, None] if jnp.ndim(v) == 1 else v)
              for k, v in par.items()}), jnp.asarray(fy))
         E_steps = np.asarray(ys["E"])  # (nt, K, nx)
-        w = np.asarray(_trapezoid_weights(st.x, st.nx, st.nx, dtype))
+        w = np.asarray(_trapezoid_weights(st.x, dtype))
         areas = ((E_steps < 0).astype(np.float64) * w).sum(axis=-1)
         for k in range(K):
             hit = np.nonzero(areas[:, k] > 0.3)[0]
